@@ -8,17 +8,28 @@ Run from the root of a checkout, with no arguments:
 Phases (each raises on failure; the script then exits non-zero):
 
 1. device: prints the card's name and power limit (nvidia-smi); TF32 off.
-2. build: compiles every CUDA kernel of the path from ``palettenerf_torch/csrc``.
+2. build: compiles every CUDA kernel from ``palettenerf_torch/csrc``, one ``nvcc``
+   per source, all at once.
 3. kernels: holds each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it and at edge cases, and times kernel, plain version
-   and the one PyTorch call that computes the same function.
-4. reference: one small ``-O`` train step on the card against the same step on the CPU
-   (where the port runs the plain versions): loss and every parameter gradient.
-5. main path: the ``-O`` trainer of ``palettenerf_torch.main_nerf`` at full width on
-   ``data_proc/proc_toys`` for 300 steps (grid refreshes full, then by slab), then one
-   validation view through ``render_image``. Launch counts are zeroed just before and
-   read just after; every kernel of the path must have launched.
+   shapes its path gives it and at edge cases, and times kernel, plain version and the
+   one PyTorch call that computes the same function. ``window_gather`` is on no path
+   (standalone): it must be bit-exact, and its launches are those of its timed run.
+4. train reference: one small ``-O`` train step on the card against the same step on
+   the CPU (where the port runs the plain versions): loss and every gradient.
+5. train main path: the ``-O`` trainer of ``palettenerf_torch.main_nerf`` at full width
+   on ``data_proc/proc_toys`` for 300 steps, then one validation view.
+6. serve reference: a small palette field baked and swept on the card and on the CPU
+   from the same weights: bake channels within tolerance, frames by PSNR (plain and
+   with a RegionEdit recolor).
+7. serve main path: ``palettenerf_torch.main_serve deploy/proc_toys --data
+   data_proc/proc_toys --bench`` on the committed trained checkpoint (read without
+   ``ml_dtypes``): 256^3 bake with vd_bands=2, bitfield mask, sweep volume, 60 frames of
+   800x800 at u_res 400, once with ``--edit_basis 0`` and once plain; then test view 0
+   against its ground truth, the sweep against ``render_baked`` on the same bake, and
+   the edit checks.
 
+Launch counts are zeroed just before each main path and read just after; every kernel
+of the train path must have launched there (the serve path runs no kernel of its own).
 The line before the last carries the card's name and power limit; before it, one JSON
 line lists every kernel with its numbers. The last line is the result object.
 Exits non-zero, printing no result, without a CUDA device or outside a checkout.
@@ -27,6 +38,7 @@ Exits non-zero, printing no result, without a CUDA device or outside a checkout.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -41,6 +53,12 @@ MAIN_ARGS = [SCENE, "-O", "--bound", "1", "--scale", "0.8", "--bg_radius", "0",
              "--density_thresh", "10", "--iters", "8000", "--seed", "0"]
 EPOCHS = 3                 # 100 training views -> 300 steps
 PSNR_FLOOR = 20.0          # validation view 0 after 300 steps
+DEPLOY = os.path.join(ROOT, "deploy", "proc_toys")
+SERVE_PSNR_FLOOR = 25.0    # sweep frame of test view 0 vs its ground truth: set from
+#                            the first card run (26.398 dB) with ~1.4 dB margin
+SWEEP_VS_BAKED_FLOOR = 26.0  # sweep vs render_baked, the threshold of tests/test_sweep.py
+BAKE_RTOL, BAKE_ATOL = 1e-4, 1e-5  # card vs CPU bake: f32 sums in another order
+SWEEP_CARD_PSNR = 40.0     # card vs CPU sweep frame, bf16 shade (rounding flips)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 SCATTER_RTOL = 1e-5        # of the row's summed |update|: f32 atomics reorder the sums
@@ -70,6 +88,22 @@ def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _counted():
+    """Every kernel wrapper with its launch counter, by kernel name."""
+    from palettenerf_torch.ops import scatter, window_gather
+
+    return {"scatter_add": scatter.scatter_add, "window_gather": window_gather.window_gather}
+
+
+def zero_counts() -> None:
+    for fn in _counted().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in _counted().items()}
 
 
 def check_scatter(torch, scatter, idx, vals, total, what):
@@ -141,6 +175,54 @@ def phase_kernels(torch, dev):
     return [entry]
 
 
+def phase_window_gather(torch, dev):
+    """window_gather against its plain version, bit for bit: the shapes of
+    tests/test_window_gather.py, Rw 1 and 32, bf16 windows and M8 = 65,536; then the
+    timed standalone run at the largest shape (its launches are the entry's count)."""
+    from palettenerf_torch.ops import window_gather as wg
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cases = [(8, 100, torch.float32), (16, 64, torch.float32), (1, 4096, torch.float32),
+             (32, 4096, torch.float32), (16, 4096, torch.bfloat16),
+             (32, 65536, torch.bfloat16), (32, 65536, torch.float32)]
+    for rows, m8, dt in cases:
+        W = torch.randn((rows, 128), generator=gen, device=dev).to(dt)
+        r = torch.randint(0, rows, (m8, 128), generator=gen, device=dev, dtype=torch.int32)
+        c = torch.randint(0, 128, (m8, 128), generator=gen, device=dev, dtype=torch.int32)
+        got = wg.window_gather(W, r, c)
+        ref = wg.window_gather_reference(W, r, c)
+        torch.cuda.synchronize()
+        if got.dtype != dt or got.shape != (m8, 128) or not torch.equal(got, ref):
+            raise AssertionError(f"window_gather Rw={rows} M8={m8} {dt}: not bit-exact "
+                                 f"against W[r, c]")
+    log(f"window_gather: bit-exact at {len(cases)} shapes (Rw 1..32, M8 up to 65536, "
+        f"f32 and bf16)")
+
+    # timed at the largest shape (the last case): kernel alone, plain version, torch.take
+    rows, m8, _ = cases[-1]
+    flat_idx = (r.long() * 128 + c.long())
+    wg.window_gather.launches = 0
+    ms = time_ms(torch, lambda: wg.launch(W, r, c), iters=50, warmup=5)
+    launches = wg.window_gather.launches
+    wrapper_ms = time_ms(torch, lambda: wg.window_gather(W, r, c), iters=20)
+    plain_ms = time_ms(torch, lambda: wg.window_gather_reference(W, r, c), iters=50, warmup=5)
+    library_ms = time_ms(torch, lambda: torch.take(W.reshape(-1), flat_idx), iters=50, warmup=5)
+    n_bytes = m8 * 128 * (4 + 4 + 4) + rows * 128 * 4
+    entry = {
+        "name": "window_gather", "route": "cuda",
+        "source": "palettenerf_torch/csrc/window_gather.cu",
+        "replaces": "palettenerf_tpu/ops/pallas_window_gather.py:45",
+        "path": "standalone", "launches": launches, "max_abs_err": 0.0, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": library_ms,
+    }
+    log(f"window_gather timing at Rw={rows} M8={m8} f32: kernel {ms:.4f} ms "
+        f"(wrapper with range check {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+        f"torch.take {library_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms "
+        f"({n_bytes / 1e6:.1f} MB), {launches} launches")
+    return entry
+
+
 def phase_reference(torch, dev):
     """One small -O train step on the card and on the CPU, from the same weights and
     draws: the loss and every gradient must agree."""
@@ -192,7 +274,6 @@ def phase_main_path(torch, dev):
     from palettenerf_torch.data.provider import NeRFDataset
     from palettenerf_torch.main_nerf import build_parser
     from palettenerf_torch.models.nerf import NeRFSpec, param_list
-    from palettenerf_torch.ops import scatter
     from palettenerf_torch.train.metrics import psnr
     from palettenerf_torch.train.trainer import Trainer
 
@@ -211,7 +292,7 @@ def phase_main_path(torch, dev):
         raise AssertionError(f"hash table has {spec.grid.total_params} rows")
 
     torch.cuda.reset_peak_memory_stats()
-    scatter.scatter_add.launches = 0
+    zero_counts()
     # -------------------------------------------------------------- main path
     trainer.train(train_ds, None, 1)          # epoch 1: first-use costs included
     torch.cuda.synchronize()
@@ -227,7 +308,7 @@ def phase_main_path(torch, dev):
     t0 = time.perf_counter()
     out = trainer.eval_step_full(data)
     eval_s = time.perf_counter() - t0
-    launches = {"scatter_add": scatter.scatter_add.launches}
+    launches = read_counts()
     # -------------------------------------------------------------- checks
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     steps = trainer.global_step
@@ -258,6 +339,174 @@ def phase_main_path(torch, dev):
     return launches
 
 
+def _random_palette_params(torch, spec, gen):
+    """A small random palette field (CPU): MLPs at torch.nn.Linear's init, tables
+    U(-4, 4) and the density and omega heads scaled by 8, so that density and palette
+    weights vary across the volume (sigma from ~0.03 to ~15); a fixed 4-color palette."""
+    from palettenerf_torch.models.mlp import init_mlp
+    from palettenerf_torch.ops.hashgrid import init_hashgrid
+
+    P, g, h, n = spec.num_basis, spec.geo_feat_dim, spec.hidden_dim, spec.grid.output_dim
+    params = {name: init_hashgrid(spec.grid, gen).uniform_(-4, 4, generator=gen)
+              for name in ("encoder", "encoder_palette")}
+    params.update(
+        sigma_net=init_mlp([n, h, 1 + g], gen),
+        color_net=init_mlp([spec.sh_dim + g, h, h, 3], gen),
+        diff_net=init_mlp([g, h, h, 3], gen),
+        basis_net=init_mlp([n + 3, h, g], gen),
+        offsets_radiance_net=init_mlp([g, 3 * P + 1], gen, bias=True),
+        omega_net=init_mlp([g, P], gen),
+        basis_color=torch.tensor([[0.9, 0.2, 0.1], [0.1, 0.8, 0.3], [0.2, 0.3, 0.9],
+                                  [0.8, 0.8, 0.2]]),
+    )
+    params["sigma_net"][-1][:, 0] *= 8.0
+    params["omega_net"][0] *= 8.0
+    return params
+
+
+def _to(torch, params, dev):
+    return {k: (v.to(dev) if torch.is_tensor(v) else
+                [{a: b.to(dev) for a, b in w.items()} if isinstance(w, dict) else w.to(dev)
+                 for w in v]) for k, v in params.items()}
+
+
+def _psnr(torch, a, b) -> float:
+    mse = float(((a.float().cpu() - b.float().cpu()) ** 2).mean())
+    return -10.0 * math.log10(mse + 1e-12)
+
+
+def phase_serve_reference(torch, dev):
+    """Bake + sweep of a 4-level, 2^13-row palette field on the card and on the CPU,
+    from the same weights: bake channels to BAKE_RTOL/BAKE_ATOL, frames by PSNR."""
+    import numpy as np
+
+    from palettenerf_torch.models.palette import PaletteSpec
+    from palettenerf_torch.render.baking import bake_palette
+    from palettenerf_torch.render.palette_renderer import make_region_edit
+    from palettenerf_torch.render.sweep import build_sweep_volume, render_sweep
+
+    spec = PaletteSpec.build(bound=1.0, num_basis=4, grid_levels=4, log2_hashmap_size=13)
+    params = _random_palette_params(torch, spec, torch.Generator().manual_seed(3))
+    eye = np.array([0.4, 0.5, -2.6])
+    fwd = -eye / np.linalg.norm(eye)
+    right = np.cross(fwd, [0.0, 1.0, 0.0])
+    right /= np.linalg.norm(right)
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 0], pose[:3, 1], pose[:3, 2], pose[:3, 3] = right, np.cross(fwd, right), fwd, eye
+    intr = (70.0, 70.0, 32.0, 32.0)
+    edit = make_region_edit(4, clip_dim=1, mean_xyz=(0.2, 0.0, -0.1), std_xyz=0.3)._replace(
+        delta_hsv=np.array([[120.0, 1.0, 1.0], [0.0, 0.5, 1.5], [180.0, 1.0, 0.5],
+                            [0.0, 1.0, 1.0]], np.float32))
+    res = {}
+    for device in ("cpu", dev):
+        p = _to(torch, params, device)
+        baked = bake_palette(p, spec, resolution=48, vd_bands=2)
+        sv = build_sweep_volume(baked)
+        frames = [render_sweep(sv, pose, intr, 64, 64, u_res=160, basis_color=p["basis_color"],
+                               edit=e)["image"] for e in (None, edit)]
+        res[str(device)] = (baked, frames)
+    (bc, fc), (bg, fg) = res["cpu"], res[str(dev)]
+    worst = {}
+    for name in ("density", "diffuse", "omega", "offsets", "radiance", "view_sh"):
+        c, g = getattr(bc, name), getattr(bg, name).cpu()
+        excess = ((g - c).abs() - (BAKE_ATOL + BAKE_RTOL * c.abs())).max()
+        worst[name] = float((g - c).abs().max())
+        if float(excess) > 0:
+            raise AssertionError(f"serve reference: baked {name} on the card differs from "
+                                 f"the CPU beyond {BAKE_ATOL} + {BAKE_RTOL}|ref|")
+    ps = [_psnr(torch, a, b) for a, b in zip(fc, fg)]
+    moved = float((fg[1] - fg[0]).abs().max())
+    log(f"serve reference: bake max |card - cpu| "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+        + f"; sweep card vs cpu PSNR plain {ps[0]:.2f} dB, edited {ps[1]:.2f} dB; "
+          f"edit moves {moved:.3f}")
+    if min(ps) < SWEEP_CARD_PSNR or moved <= 0.05:
+        raise AssertionError(f"serve reference: sweep on the card vs the CPU {ps} dB "
+                             f"(floor {SWEEP_CARD_PSNR}), edit moved {moved}")
+
+
+def phase_serve(torch, dev):
+    """The serving main path on the committed trained checkpoint, at full width."""
+    import numpy as np
+
+    from palettenerf_torch import main_serve
+    from palettenerf_torch.data.rays import gen_rays
+    from palettenerf_torch.render.baking import fuse_volume, render_baked
+    from palettenerf_torch.render.palette_renderer import make_region_edit
+    from palettenerf_torch.render.sweep import render_sweep
+    from palettenerf_torch.train.checkpoint import load_reference_checkpoint
+
+    argv = [DEPLOY, "--data", SCENE, "--bench"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    # -------------------------------------------------------------- main path
+    r = main_serve.main(argv + ["--edit_basis", "0"], device=dev)
+    peak_edit = torch.cuda.max_memory_allocated() / 2 ** 30
+    fps_edit, bake_edit, edit = r.fps, r.bake_s, r.edit
+    del r
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = main_serve.main(argv, device=dev, keep_bake=True)
+    peak_plain = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = read_counts()
+    # -------------------------------------------------------------- checks
+    if "ml_dtypes" in sys.modules:
+        raise AssertionError("the checkpoint load imported ml_dtypes")
+    tree = load_reference_checkpoint(res.ckpt)["params"]
+    if tree["encoder"].dtype != np.uint16 or res.num_basis != 5:
+        raise AssertionError("deploy checkpoint: bf16 tables not read as their words, or P != 5")
+    C = res.sv.vols[0].shape[2]
+    if res.sv.vols[0].shape != (256, 256, C, 256) or C != 2 + 4 * 5 + 3 * 4:
+        raise AssertionError(f"sweep volume {tuple(res.sv.vols[0].shape)}")
+    ds = res.dataset
+    H, W = ds.H, ds.W
+    pose = ds.poses[0]
+    out = render_sweep(res.sv, pose, ds.intrinsics, H, W, u_res=400,
+                       basis_color=res.basis_color)
+    img = out["image"]
+    gt = torch.from_numpy(ds.images[0])
+    gt = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:])
+    finite = all(bool(torch.isfinite(v).all()) for v in out.values())
+    psnr_gt = _psnr(torch, img, gt)
+    # pixels that saw only background keep T = 1: the JAX package's per-block test
+    # max(T) > t_thresh (dropped by the port) could not skip any block of such a frame
+    ws_min = float(out["weights_sum"].min())
+
+    fused = fuse_volume(res.baked)
+    ro, rd = (torch.from_numpy(a).to(dev) for a in gen_rays(pose, ds.intrinsics, H, W))
+    gold = torch.cat([render_baked(res.baked, ro[s:s + 8192], rd[s:s + 8192],
+                                   num_samples=512, basis_color=res.basis_color,
+                                   fused=fused)["image"]
+                      for s in range(0, H * W, 8192)]).reshape(H, W, 3)
+    del fused
+    psnr_baked = _psnr(torch, img, gold)
+    edited = render_sweep(res.sv, pose, ds.intrinsics, H, W, u_res=400,
+                          basis_color=res.basis_color, edit=edit)["image"]
+    neutral = render_sweep(res.sv, pose, ds.intrinsics, H, W, u_res=400,
+                           basis_color=res.basis_color,
+                           edit=make_region_edit(res.num_basis, clip_dim=1))["image"]
+    moved = float((edited - img).abs().max())
+    neutral_moved = float((neutral - img).abs().max())
+    log(f"serve main path: bake {res.bake_s:.2f} s (edited run {bake_edit:.2f} s), "
+        f"{res.fps:.2f} fps plain, {fps_edit:.2f} fps edited ({W}x{H}, u_res 400, 60 "
+        f"frames), peak memory {peak_plain:.2f} GiB plain (bake kept) / {peak_edit:.2f} "
+        f"GiB edited; test view 0: PSNR vs ground truth {psnr_gt:.3f} dB, vs render_baked "
+        f"(512 samples) {psnr_baked:.3f} dB; edit moves {moved:.3f}, neutral edit "
+        f"{neutral_moved:.3g}; min weights_sum {ws_min:.3g}; launches {launches}")
+    if img.shape != (H, W, 3) or (H, W) != (800, 800) or not finite:
+        raise AssertionError(f"sweep frame {tuple(img.shape)}, finite {finite}")
+    if not psnr_gt > SERVE_PSNR_FLOOR:
+        raise AssertionError(f"test view 0 PSNR {psnr_gt:.3f} dB <= floor {SERVE_PSNR_FLOOR}")
+    if not psnr_baked > SWEEP_VS_BAKED_FLOOR:
+        raise AssertionError(f"sweep vs render_baked {psnr_baked:.3f} dB <= "
+                             f"{SWEEP_VS_BAKED_FLOOR}")
+    if not moved > 0.05 or neutral_moved != 0.0:
+        raise AssertionError(f"edit moved {moved} (> 0.05 needed), neutral edit moved "
+                             f"{neutral_moved} (0 needed)")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "palettenerf_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -279,19 +528,27 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
 
-    from palettenerf_torch.ops import scatter
+    from palettenerf_torch.ops import _cuda, scatter, window_gather
 
     t0 = time.perf_counter()
-    scatter.build()
-    log(f"build: scatter_add.cu in {time.perf_counter() - t0:.1f} s")
-    if scatter.LIBRARY.build_log:
-        log("nvcc -Xptxas -v:\n" + scatter.LIBRARY.build_log.strip())
+    libs = [scatter.LIBRARY, window_gather.LIBRARY]
+    _cuda.build_all(libs)
+    log(f"build: {', '.join(os.path.basename(lib.source) for lib in libs)} in "
+        f"{time.perf_counter() - t0:.1f} s (in parallel)")
+    for lib in libs:
+        if lib.build_log:
+            log(f"nvcc -Xptxas -v ({lib.name}):\n" + lib.build_log.strip())
 
     kernels = phase_kernels(torch, dev)
+    wg_entry = phase_window_gather(torch, dev)
     phase_reference(torch, dev)
-    launches = phase_main_path(torch, dev)
+    train_launches = phase_main_path(torch, dev)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["path"] = "train"
+        k["launches"] = train_launches[k["name"]]
+    kernels.append(wg_entry)
+    phase_serve_reference(torch, dev)
+    phase_serve(torch, dev)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

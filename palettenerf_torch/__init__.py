@@ -4,16 +4,19 @@ The JAX package beside it is the reference; this package imports nothing from it
 (and never imports ``jax``). Its layout mirrors the JAX package so that every
 counterpart is easy to find:
 
-  ops/     hash grid, SH, ray/AABB, marching, compositing, occupancy, scatter kernel
+  ops/     hash grid, SH, ray/AABB, marching, compositing, occupancy, the kernel wrappers
   csrc/    hand-written CUDA C++ kernels (built with ``nvcc`` at first use)
-  models/  stage-1 NeRF network as functions on a parameter dict
-  render/  train and eval volume renderers
-  data/    dataset provider, PNG decoder, ray generation
-  train/   trainer, checkpoints, metrics
+  models/  stage-1 NeRF and PaletteNeRF (eval) networks as functions on a parameter dict
+  render/  NeRF train/eval renderers; palette edits, baking and the shear-warp sweep
+  data/    dataset provider, PNG codec, ray generation
+  train/   trainer, checkpoints (incl. the JAX package's pickles), metrics
+  utils/   color conversions
 
 Ported so far: the stage-1 Instant-NGP train step with ``-O`` (bf16 hash-grid
 backward through the CUDA scatter kernel), the density-grid refresh and the exact
-eval render. Entry point: ``python -m palettenerf_torch.main_nerf``.
+eval render (``python -m palettenerf_torch.main_nerf``); serving — a trained palette
+checkpoint baked into dense volumes, frames by the shear-warp sweep with live recolors
+(``python -m palettenerf_torch.main_serve``); and the window-gather kernel.
 """
 
 from __future__ import annotations

@@ -1,12 +1,15 @@
-"""Where the time of the ``-O`` main path goes on the card: ``torch.profiler`` over one
-training epoch (100 steps with their grid refreshes) and one exact eval frame of
-``data_proc/proc_toys`` at full width, after a warm-up epoch.
+"""Where the time of the port's main paths goes on the card: ``torch.profiler`` over
 
-    python -m palettenerf_torch.profile_main_path [--steps_warmup 100]
+- train: one ``-O`` training epoch (100 steps with their grid refreshes) and one exact
+  eval frame of ``data_proc/proc_toys`` at full width, after a warm-up epoch;
+- serve: one 800x800 sweep frame (u_res 400) of the committed checkpoint's 256^3 bake,
+  plain and with basis 0 recolored, after the serve CLI's own warm-up frames.
 
-Prints, for each of the two windows, the wall time, the summed device time of all
-kernels and its share of the wall time (busy share; one stream, so kernels do not
-overlap), and the operators with the most device time.
+    python -m palettenerf_torch.profile_main_path [--steps_warmup 100] [--only train|serve]
+
+Prints, for each window, the wall time, the summed device time of all kernels and its
+share of the wall time (busy share; one stream, so kernels do not overlap), the number
+of kernel launches, and the operators with the most device time.
 """
 
 from __future__ import annotations
@@ -46,13 +49,7 @@ def _profile(what: str, fn, top: int = 15):
         print(f"   {e.self_device_time_total / 1e3:10.2f} ms  {e.count:7d} calls  {e.key[:90]}")
 
 
-def main(argv=None):
-    p = argparse.ArgumentParser()
-    p.add_argument("--steps_warmup", type=int, default=100)
-    a = p.parse_args(argv)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip())
+def profile_train(a):
     cfg = Config.from_args(build_parser().parse_args(ARGS))
     spec = NeRFSpec.build(bound=cfg.bound, bg_radius=cfg.bg_radius, fp16=cfg.fp16_enabled,
                           log2_hashmap_size=cfg.log2_hashmap_size,
@@ -68,6 +65,41 @@ def main(argv=None):
     data = valid_ds.collate(0)
     tr.eval_step_full(data)
     _profile(f"eval frame {data['W']}x{data['H']}", lambda: tr.eval_step_full(data))
+
+
+def profile_serve():
+    from . import main_serve
+    from .render.palette_renderer import make_region_edit, region_edit_delta_hsv
+    from .render.sweep import render_sweep
+
+    res = main_serve.main([os.path.join(_ROOT, "deploy", "proc_toys"), "--data",
+                           os.path.join(_ROOT, "data_proc", "proc_toys"), "--bench",
+                           "--n_frames", "4"], device="cuda")
+    palette = res.basis_color.cpu().numpy()
+    new = palette.copy()
+    new[0] = (0.2, 0.9, 0.2)
+    edit = make_region_edit(res.num_basis, clip_dim=1)._replace(
+        delta_hsv=region_edit_delta_hsv(palette, new).numpy())
+    for what, e in (("plain", None), ("edited (basis 0)", edit)):
+        def frame(e=e):
+            render_sweep(res.sv, res.pose_at(0), res.intrinsics, 800, 800, u_res=400,
+                         basis_color=res.basis_color, edit=e)
+        frame()
+        _profile(f"sweep frame 800x800 u_res 400, {what}", frame)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--steps_warmup", type=int, default=100)
+    p.add_argument("--only", choices=["train", "serve"], default=None)
+    a = p.parse_args(argv)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip())
+    if a.only != "serve":
+        profile_train(a)
+    if a.only != "train":
+        profile_serve()
 
 
 if __name__ == "__main__":

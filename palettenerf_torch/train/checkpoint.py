@@ -5,11 +5,13 @@ and keeps the JAX package's file naming and rolling policy
 (``palettenerf_tpu/train/checkpoint.py``): ``<name>_ep<epoch>.ckpt`` keeping the
 newest ``max_keep``, and ``<name>.ckpt`` for the best (EMA) weights.
 
-``params_from_jax`` turns the JAX package's parameter tree (numpy arrays; MLPs as
-lists of ``{"w": [in, out]}``) into the port's parameter dict. ``load_reference_checkpoint``
-reads the JAX package's pickles without JAX. Their hash tables may be ``ml_dtypes``
-bfloat16 arrays, which only unpickle where ``ml_dtypes`` is installed; elsewhere the
-load fails with a message saying so.
+``params_from_jax`` (stage-1 NeRF) and ``palette_params_from_jax`` (PaletteNeRF) turn
+the JAX package's parameter tree (numpy arrays; MLPs as lists of ``{"w": [in, out]}``
+layers, ``"b"`` where the layer has a bias) into the port's parameter dict.
+``load_reference_checkpoint`` reads the JAX package's pickles without JAX and without
+``ml_dtypes``: their hash tables are ``ml_dtypes`` bfloat16 arrays, which it reads as
+``numpy.uint16`` arrays of the same 16-bit words. ``_leaf_to_tensor`` views such words
+as ``torch.bfloat16``, bit for bit (the JAX package writes no uint16 leaves of its own).
 """
 
 from __future__ import annotations
@@ -24,26 +26,37 @@ import torch
 
 
 def _leaf_to_tensor(a, dtype=torch.float32) -> torch.Tensor:
+    """A checkpoint leaf -> tensor. bf16 words (``uint16`` from ``load_reference_checkpoint``,
+    or an ``ml_dtypes`` bfloat16 array) become ``torch.bfloat16`` bit for bit."""
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16: reinterpret the 16-bit words
+    if a.dtype.name in ("bfloat16", "uint16"):
         t = torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(a))
     return t.to(dtype) if dtype is not None else t
 
 
-def _mlp_from_jax(layers) -> list:
-    """A JAX MLP subtree -> list of [in, out] tensors. Accepts the list of
-    ``{"w": ...}`` dicts and the numpy object array such a list was saved as
+def _mlp_from_jax(layers, bias: bool = False) -> list:
+    """A JAX MLP subtree -> list of layers: ``[in, out]`` tensors, or ``{"w", "b"}`` dicts
+    of tensors for layers with a bias (only where ``bias`` allows them). Accepts the list
+    of layer dicts and the numpy object array such a list was saved as
     (``deploy/proc_toys/palette_ep0080.ckpt``), unpacking it layer by layer."""
     out = []
     for layer in list(np.asarray(layers, dtype=object).reshape(-1)):
         if not isinstance(layer, dict) or "w" not in layer:
             raise ValueError(f"MLP layer is not a {{'w': array}} dict: {type(layer)}")
-        if "b" in layer:
-            raise ValueError("MLP layer has a bias; the ported NeRF MLPs are bias-free")
-        out.append(_leaf_to_tensor(layer["w"]))
+        if "b" not in layer:
+            out.append(_leaf_to_tensor(layer["w"]))
+        elif bias:
+            out.append({"w": _leaf_to_tensor(layer["w"]), "b": _leaf_to_tensor(layer["b"])})
+        else:
+            raise ValueError("MLP layer has a bias; this network's MLPs are bias-free")
     return out
+
+
+def _layers_to(layers: list, device) -> list:
+    return [{k: v.to(device) for k, v in w.items()} if isinstance(w, dict) else w.to(device)
+            for w in layers]
 
 
 def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
@@ -59,16 +72,54 @@ def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
     }
 
 
+_PALETTE_MLPS = ("sigma_net", "color_net", "diff_net", "basis_net", "omega_net")
+
+
+def palette_params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+    """JAX PaletteNeRF parameter tree -> the port's parameter dict (f32 tensors on ``device``).
+
+    Reads the three hash tables (``encoder_clip`` and ``clip_net`` only when present),
+    the bias-free MLPs, ``offsets_radiance_net`` (one layer with a bias), the palette
+    ``basis_color`` / ``basis_color_origin`` and, when present, ``hist_weights``.
+    Raises KeyError when a required entry is missing.
+    """
+    out: Dict[str, Any] = {
+        "encoder": _leaf_to_tensor(tree["encoder"]).to(device),
+        "encoder_palette": _leaf_to_tensor(tree["encoder_palette"]).to(device),
+        "offsets_radiance_net": _layers_to(_mlp_from_jax(tree["offsets_radiance_net"],
+                                                         bias=True), device),
+        "basis_color": _leaf_to_tensor(tree["basis_color"]).to(device),
+        "basis_color_origin": _leaf_to_tensor(tree["basis_color_origin"]).to(device),
+    }
+    for name in _PALETTE_MLPS:
+        out[name] = _layers_to(_mlp_from_jax(tree[name]), device)
+    for name in ("encoder_clip", "hist_weights"):
+        if name in tree:
+            out[name] = _leaf_to_tensor(tree[name]).to(device)
+    if "clip_net" in tree:
+        out["clip_net"] = _layers_to(_mlp_from_jax(tree["clip_net"]), device)
+    return out
+
+
+class _ReferenceUnpickler(pickle.Unpickler):
+    """Reads ``ml_dtypes.bfloat16`` as ``numpy.uint16``: the array bytes are the same
+    16-bit words, so no ``ml_dtypes`` is needed. Any other ``ml_dtypes`` type raises."""
+
+    def find_class(self, module, name):
+        if module == "ml_dtypes" or module.startswith("ml_dtypes."):
+            if name == "bfloat16":
+                return np.uint16
+            raise pickle.UnpicklingError(
+                f"checkpoint leaf of type ml_dtypes.{name}: only bfloat16 leaves are read "
+                f"(as their 16-bit words)")
+        return super().find_class(module, name)
+
+
 def load_reference_checkpoint(path: str) -> Dict[str, Any]:
-    """Unpickle a checkpoint written by the JAX package (numpy pytrees)."""
-    try:
-        with open(path, "rb") as f:
-            return pickle.load(f)
-    except ModuleNotFoundError as e:
-        raise RuntimeError(
-            f"{path}: this JAX-package checkpoint needs the '{e.name}' module to "
-            f"unpickle (its hash tables are ml_dtypes bfloat16 arrays), and '{e.name}' "
-            f"is not installed here") from e
+    """Unpickle a checkpoint written by the JAX package (numpy pytrees). bf16 leaves
+    come back as ``uint16`` arrays of their words (see ``_leaf_to_tensor``)."""
+    with open(path, "rb") as f:
+        return _ReferenceUnpickler(f).load()
 
 
 def save_checkpoint(ckpt_dir: str, name: str, epoch: int, payload: Dict[str, Any],

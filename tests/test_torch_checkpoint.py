@@ -47,25 +47,57 @@ def test_deploy_checkpoint_density_matches_jax(deploy_tree):
 
 
 def test_bf16_leaf_converts_bit_exact(deploy_tree):
-    enc = deploy_tree["params"]["encoder"]
-    assert enc.dtype.name == "bfloat16"
-    t = tckpt._leaf_to_tensor(enc[:1000], dtype=None)
-    assert t.dtype == torch.bfloat16
-    np.testing.assert_array_equal(t.float().numpy(), enc[:1000].astype(np.float32))
+    """The loader reads the bf16 tables as their 16-bit words; as torch.bfloat16 they
+    equal an ml_dtypes load of the same file bit for bit."""
+    import pickle
+
+    with open(DEPLOY, "rb") as f:
+        ref = pickle.load(f)["params"]  # ml_dtypes is installed here
+    for name in ("encoder", "encoder_palette", "encoder_clip", "hist_weights"):
+        words = deploy_tree["params"][name]
+        assert words.dtype == np.uint16 and ref[name].dtype.name == "bfloat16"
+        t = tckpt._leaf_to_tensor(words, dtype=None)
+        assert t.dtype == torch.bfloat16
+        np.testing.assert_array_equal(t.view(torch.int16).numpy(),
+                                      np.asarray(ref[name]).view(np.int16))
+    np.testing.assert_array_equal(tckpt._leaf_to_tensor(words[:4], dtype=None).float().numpy(),
+                                  np.asarray(ref["hist_weights"][:4], np.float32))
 
 
 def test_missing_ml_dtypes_gives_clear_error(tmp_path):
+    """Without ml_dtypes the deploy checkpoint still loads, its bf16 tables equal to an
+    ml_dtypes load bit for bit; a leaf of another ml_dtypes type fails with a clear
+    error instead of a bare ModuleNotFoundError."""
+    import pickle
+
+    import ml_dtypes
+
+    with open(DEPLOY, "rb") as f:
+        ref = pickle.load(f)["params"]
+    ref_bits = str(int(np.asarray(ref["encoder"]).view(np.uint16).astype(np.int64).sum()))
+    odd = tmp_path / "fp8.ckpt"
+    with open(odd, "wb") as f:
+        pickle.dump({"params": {"x": np.zeros(3, ml_dtypes.float8_e4m3fn)}}, f)
     code = (
         "import sys; sys.modules['ml_dtypes'] = None\n"
-        "from palettenerf_torch.train.checkpoint import load_reference_checkpoint\n"
+        "import numpy as np\n"
+        "from palettenerf_torch.train.checkpoint import load_reference_checkpoint, "
+        "palette_params_from_jax\n"
+        f"tree = load_reference_checkpoint({DEPLOY!r})['params']\n"
+        "print('BITS', int(tree['encoder'].astype(np.int64).sum()))\n"
+        "p = palette_params_from_jax(tree)\n"
+        "print('LOADED', p['encoder'].shape, p['basis_color'].shape)\n"
         "try:\n"
-        f"    load_reference_checkpoint({DEPLOY!r})\n"
-        "except RuntimeError as e:\n"
-        "    print('ERR', e)\n"
+        f"    load_reference_checkpoint({str(odd)!r})\n"
+        "except Exception as e:\n"
+        "    print('ERR', type(e).__name__, e)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=REPO, timeout=120)
-    assert "ERR" in out.stdout and "ml_dtypes" in out.stdout, out.stderr
+    assert out.returncode == 0, out.stderr
+    assert f"BITS {ref_bits}" in out.stdout, out.stdout
+    assert "LOADED torch.Size([6119864, 2]) torch.Size([5, 3])" in out.stdout
+    assert "ERR UnpicklingError" in out.stdout and "float8_e4m3fn" in out.stdout
 
 
 def test_port_imports_nothing_of_jax():
@@ -86,4 +118,4 @@ def test_port_imports_nothing_of_jax():
                          cwd=REPO, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD [] " in out.stdout, out.stdout
-    assert int(out.stdout.split("N")[-1]) >= 20
+    assert int(out.stdout.split("N")[-1]) >= 28
