@@ -9,7 +9,7 @@ Phases (each raises on failure; the script then exits non-zero):
 
 1. device: prints the card's name and power limit (nvidia-smi); TF32 off.
 2. build: compiles every CUDA kernel from ``palettenerf_torch/csrc``, one ``nvcc``
-   per source, all at once.
+   per source, all started together.
 3. kernels: holds each kernel against its plain PyTorch version on the card, at the
    shapes its path gives it and at edge cases, and times kernel, plain version and the
    one PyTorch call that computes the same function. ``window_gather`` is on no path
@@ -18,15 +18,15 @@ Phases (each raises on failure; the script then exits non-zero):
    the CPU (where the port runs the plain versions): loss and every gradient.
 5. train main path: the ``-O`` trainer of ``palettenerf_torch.main_nerf`` at full width
    on ``data_proc/proc_toys`` for 300 steps, then one validation view.
+   It ends by writing the serve path's checkpoint (see ``write_serve_checkpoint``).
 6. serve reference: a small palette field baked and swept on the card and on the CPU
    from the same weights: bake channels within tolerance, frames by PSNR (plain and
    with a RegionEdit recolor).
-7. serve main path: ``palettenerf_torch.main_serve deploy/proc_toys --data
-   data_proc/proc_toys --bench`` on the committed trained checkpoint (read without
-   ``ml_dtypes``): 256^3 bake with vd_bands=2, bitfield mask, sweep volume, 60 frames of
-   800x800 at u_res 400, once with ``--edit_basis 0`` and once plain; then test view 0
-   against its ground truth, the sweep against ``render_baked`` on the same bake, and
-   the edit checks.
+7. serve main path: ``python -m palettenerf_torch.main_serve <ckpt> --data
+   data_proc/proc_toys --bench`` at full width: 256^3 bake with vd_bands=2, bitfield
+   mask, sweep volume, 60 frames of 800x800 at u_res 400, once with ``--edit_basis 0``
+   and once plain; then, on the same bake, test view 0's opacity against its ground
+   truth alpha, the sweep against ``render_baked``, and the edit checks.
 
 Launch counts are zeroed just before each main path and read just after; every kernel
 of the train path must have launched there (the serve path runs no kernel of its own).
@@ -53,14 +53,16 @@ MAIN_ARGS = [SCENE, "-O", "--bound", "1", "--scale", "0.8", "--bg_radius", "0",
              "--density_thresh", "10", "--iters", "8000", "--seed", "0"]
 EPOCHS = 3                 # 100 training views -> 300 steps
 PSNR_FLOOR = 20.0          # validation view 0 after 300 steps
-DEPLOY = os.path.join(ROOT, "deploy", "proc_toys")
-SERVE_PSNR_FLOOR = 25.0    # sweep frame of test view 0 vs its ground truth: set from
-#                            the first card run (26.398 dB) with ~1.4 dB margin
+SERVE_P = 5                # palette size of the committed proc_toys palette checkpoint
+ALPHA_PSNR_FLOOR = 24.0    # sweep opacity of test view 0 vs its ground truth alpha: set
+#                            from the first card run (25.308 dB) with ~1.3 dB margin
 SWEEP_VS_BAKED_FLOOR = 26.0  # sweep vs render_baked, the threshold of tests/test_sweep.py
 BAKE_RTOL, BAKE_ATOL = 1e-4, 1e-5  # card vs CPU bake: f32 sums in another order
 SWEEP_CARD_PSNR = 40.0     # card vs CPU sweep frame, bf16 shade (rounding flips)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
+PALETTE = [[0.9, 0.2, 0.1], [0.1, 0.8, 0.3], [0.2, 0.3, 0.9], [0.8, 0.8, 0.2],
+           [0.6, 0.4, 0.7]]
 SCATTER_RTOL = 1e-5        # of the row's summed |update|: f32 atomics reorder the sums
 TABLE_ROWS = 6_119_864     # full width: 16 levels, 2^19 rows per hashed level
 
@@ -185,6 +187,7 @@ def phase_window_gather(torch, dev):
     cases = [(8, 100, torch.float32), (16, 64, torch.float32), (1, 4096, torch.float32),
              (32, 4096, torch.float32), (16, 4096, torch.bfloat16),
              (32, 65536, torch.bfloat16), (32, 65536, torch.float32)]
+    max_err = 0.0
     for rows, m8, dt in cases:
         W = torch.randn((rows, 128), generator=gen, device=dev).to(dt)
         r = torch.randint(0, rows, (m8, 128), generator=gen, device=dev, dtype=torch.int32)
@@ -195,8 +198,9 @@ def phase_window_gather(torch, dev):
         if got.dtype != dt or got.shape != (m8, 128) or not torch.equal(got, ref):
             raise AssertionError(f"window_gather Rw={rows} M8={m8} {dt}: not bit-exact "
                                  f"against W[r, c]")
+        max_err = max(max_err, float((got.float() - ref.float()).abs().max()))
     log(f"window_gather: bit-exact at {len(cases)} shapes (Rw 1..32, M8 up to 65536, "
-        f"f32 and bf16)")
+        f"f32 and bf16), max_abs_err {max_err}")
 
     # timed at the largest shape (the last case): kernel alone, plain version, torch.take
     rows, m8, _ = cases[-1]
@@ -212,7 +216,7 @@ def phase_window_gather(torch, dev):
         "name": "window_gather", "route": "cuda",
         "source": "palettenerf_torch/csrc/window_gather.cu",
         "replaces": "palettenerf_tpu/ops/pallas_window_gather.py:45",
-        "path": "standalone", "launches": launches, "max_abs_err": 0.0, "ms": ms,
+        "path": "standalone", "launches": launches, "max_abs_err": max_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes", "library_ms": library_ms,
     }
@@ -336,19 +340,42 @@ def phase_main_path(torch, dev):
         raise AssertionError(f"render shape {out['image'].shape}")
     if not val_psnr > PSNR_FLOOR:
         raise AssertionError(f"validation PSNR {val_psnr:.3f} dB <= floor {PSNR_FLOOR}")
-    return launches
+    return launches, write_serve_checkpoint(torch, trainer)
 
 
-def _random_palette_params(torch, spec, gen):
-    """A small random palette field (CPU): MLPs at torch.nn.Linear's init, tables
-    U(-4, 4) and the density and omega heads scaled by 8, so that density and palette
-    weights vary across the volume (sigma from ~0.03 to ~15); a fixed 4-color palette."""
+def write_serve_checkpoint(torch, trainer) -> str:
+    """The checkpoint the serve main path runs on, in the JAX package's pickle layout.
+    The palette trainer is not ported, so it is built at the widths of the committed
+    proc_toys palette checkpoint (P = 5, three 16-level 2^19-row tables) from the train
+    phase's EMA NeRF (encoder, sigma_net, color_net) and occupancy grid, under seeded
+    random palette heads. The script thus needs no file beyond the code and the scene."""
+    from palettenerf_torch.models.palette import PaletteSpec
+    from palettenerf_torch.train.checkpoint import save_reference_checkpoint
+
+    spec = PaletteSpec.build(bound=1.0, num_basis=SERVE_P)
+    params = _random_palette_params(torch, spec, torch.Generator().manual_seed(4),
+                                    lively=False)
+    params.update({k: v for k, v in trainer.eval_params().items()
+                   if k in ("encoder", "sigma_net", "color_net")})
+    path = os.path.join(WORKSPACE, "serve", f"palette_ep{trainer.epoch:04d}.ckpt")
+    return save_reference_checkpoint(path, params, trainer.epoch, trainer.global_step,
+                                     grid_state=trainer.grid_state._asdict())
+
+
+def _random_palette_params(torch, spec, gen, lively: bool = True):
+    """A random palette field (CPU): MLPs at torch.nn.Linear's init, the density and
+    omega heads scaled by 8 and the first P colors of PALETTE. ``lively`` tables are
+    U(-4, 4), so that density and palette weights vary across the volume (sigma from
+    ~0.03 to ~15); else they keep the U(-1e-4, 1e-4) init and omega varies with the
+    geometry feature alone."""
     from palettenerf_torch.models.mlp import init_mlp
     from palettenerf_torch.ops.hashgrid import init_hashgrid
 
     P, g, h, n = spec.num_basis, spec.geo_feat_dim, spec.hidden_dim, spec.grid.output_dim
-    params = {name: init_hashgrid(spec.grid, gen).uniform_(-4, 4, generator=gen)
-              for name in ("encoder", "encoder_palette")}
+    params = {name: init_hashgrid(spec.grid, gen) for name in ("encoder", "encoder_palette")}
+    if lively:
+        for t in params.values():
+            t.uniform_(-4, 4, generator=gen)
     params.update(
         sigma_net=init_mlp([n, h, 1 + g], gen),
         color_net=init_mlp([spec.sh_dim + g, h, h, 3], gen),
@@ -356,9 +383,9 @@ def _random_palette_params(torch, spec, gen):
         basis_net=init_mlp([n + 3, h, g], gen),
         offsets_radiance_net=init_mlp([g, 3 * P + 1], gen, bias=True),
         omega_net=init_mlp([g, P], gen),
-        basis_color=torch.tensor([[0.9, 0.2, 0.1], [0.1, 0.8, 0.3], [0.2, 0.3, 0.9],
-                                  [0.8, 0.8, 0.2]]),
+        basis_color=torch.tensor(PALETTE[:P]),
     )
+    params["basis_color_origin"] = params["basis_color"].clone()
     params["sigma_net"][-1][:, 0] *= 8.0
     params["omega_net"][0] *= 8.0
     return params
@@ -425,79 +452,92 @@ def phase_serve_reference(torch, dev):
                              f"(floor {SWEEP_CARD_PSNR}), edit moved {moved}")
 
 
-def phase_serve(torch, dev):
-    """The serving main path on the committed trained checkpoint, at full width."""
-    import numpy as np
-
+def phase_serve(torch, dev, ckpt):
+    """The serving main path at full width, on the checkpoint of the train phase."""
     from palettenerf_torch import main_serve
+    from palettenerf_torch.config import Config
+    from palettenerf_torch.data.provider import NeRFDataset
     from palettenerf_torch.data.rays import gen_rays
-    from palettenerf_torch.render.baking import fuse_volume, render_baked
-    from palettenerf_torch.render.palette_renderer import make_region_edit
-    from palettenerf_torch.render.sweep import render_sweep
-    from palettenerf_torch.train.checkpoint import load_reference_checkpoint
+    from palettenerf_torch.models.palette import PaletteSpec
+    from palettenerf_torch.render.baking import (bake_palette, fuse_volume,
+                                                 mask_with_bitfield, render_baked)
+    from palettenerf_torch.render.palette_renderer import make_region_edit, region_edit_delta_hsv
+    from palettenerf_torch.render.sweep import build_sweep_volume, render_sweep
+    from palettenerf_torch.train.checkpoint import (load_reference_checkpoint,
+                                                    palette_params_from_jax)
 
-    argv = [DEPLOY, "--data", SCENE, "--bench"]
+    argv = [ckpt, "--data", SCENE, "--bench"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     # -------------------------------------------------------------- main path
     r = main_serve.main(argv + ["--edit_basis", "0"], device=dev)
     peak_edit = torch.cuda.max_memory_allocated() / 2 ** 30
-    fps_edit, bake_edit, edit = r.fps, r.bake_s, r.edit
+    fps_edit, bake_edit = r.fps, r.bake_s
     del r
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    res = main_serve.main(argv, device=dev, keep_bake=True)
+    r = main_serve.main(argv, device=dev)
     peak_plain = torch.cuda.max_memory_allocated() / 2 ** 30
+    fps, bake_s = r.fps, r.bake_s
+    del r
     launches = read_counts()
     # -------------------------------------------------------------- checks
     if "ml_dtypes" in sys.modules:
         raise AssertionError("the checkpoint load imported ml_dtypes")
-    tree = load_reference_checkpoint(res.ckpt)["params"]
-    if tree["encoder"].dtype != np.uint16 or res.num_basis != 5:
-        raise AssertionError("deploy checkpoint: bf16 tables not read as their words, or P != 5")
-    C = res.sv.vols[0].shape[2]
-    if res.sv.vols[0].shape != (256, 256, C, 256) or C != 2 + 4 * 5 + 3 * 4:
-        raise AssertionError(f"sweep volume {tuple(res.sv.vols[0].shape)}")
-    ds = res.dataset
+    torch.cuda.empty_cache()
+    # the CLI's bake again, kept in f32 for the golden per-ray renderer
+    payload = load_reference_checkpoint(ckpt)
+    params = palette_params_from_jax(payload["params"], device=dev)
+    spec = PaletteSpec.build(bound=1.0, num_basis=params["basis_color"].shape[0])
+    baked = mask_with_bitfield(bake_palette(params, spec, resolution=256, vd_bands=2),
+                               payload["grid_state"])
+    sv = build_sweep_volume(baked, sigma_thresh=1e-3)
+    C = sv.vols[0].shape[2]
+    if sv.vols[0].shape != (256, 256, C, 256) or C != 2 + 4 * SERVE_P + 3 * 4:
+        raise AssertionError(f"sweep volume {tuple(sv.vols[0].shape)}")
+    palette = params["basis_color"].clamp(0, 1)
+    new = palette.cpu().clone()
+    new[0] = torch.tensor([0.2, 0.9, 0.2])  # --edit_basis 0 with the default --edit_rgb
+    edit = make_region_edit(SERVE_P, clip_dim=1, std_xyz=0.3)._replace(
+        delta_hsv=region_edit_delta_hsv(palette.cpu().numpy(), new.numpy()).numpy())
+
+    ds = NeRFDataset(Config(path=SCENE, bound=1.0, scale=0.8), type="test")
     H, W = ds.H, ds.W
     pose = ds.poses[0]
-    out = render_sweep(res.sv, pose, ds.intrinsics, H, W, u_res=400,
-                       basis_color=res.basis_color)
+    out = render_sweep(sv, pose, ds.intrinsics, H, W, u_res=400, basis_color=palette)
     img = out["image"]
-    gt = torch.from_numpy(ds.images[0])
-    gt = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:])
     finite = all(bool(torch.isfinite(v).all()) for v in out.values())
-    psnr_gt = _psnr(torch, img, gt)
+    alpha_psnr = _psnr(torch, out["weights_sum"].reshape(H, W),
+                       torch.from_numpy(ds.images[0][..., 3]))
     # pixels that saw only background keep T = 1: the JAX package's per-block test
     # max(T) > t_thresh (dropped by the port) could not skip any block of such a frame
     ws_min = float(out["weights_sum"].min())
 
-    fused = fuse_volume(res.baked)
+    fused = fuse_volume(baked)
     ro, rd = (torch.from_numpy(a).to(dev) for a in gen_rays(pose, ds.intrinsics, H, W))
-    gold = torch.cat([render_baked(res.baked, ro[s:s + 8192], rd[s:s + 8192],
-                                   num_samples=512, basis_color=res.basis_color,
-                                   fused=fused)["image"]
+    gold = torch.cat([render_baked(baked, ro[s:s + 8192], rd[s:s + 8192], num_samples=512,
+                                   basis_color=palette, fused=fused)["image"]
                       for s in range(0, H * W, 8192)]).reshape(H, W, 3)
-    del fused
+    del fused, baked
     psnr_baked = _psnr(torch, img, gold)
-    edited = render_sweep(res.sv, pose, ds.intrinsics, H, W, u_res=400,
-                          basis_color=res.basis_color, edit=edit)["image"]
-    neutral = render_sweep(res.sv, pose, ds.intrinsics, H, W, u_res=400,
-                           basis_color=res.basis_color,
-                           edit=make_region_edit(res.num_basis, clip_dim=1))["image"]
+    edited = render_sweep(sv, pose, ds.intrinsics, H, W, u_res=400, basis_color=palette,
+                          edit=edit)["image"]
+    neutral = render_sweep(sv, pose, ds.intrinsics, H, W, u_res=400, basis_color=palette,
+                           edit=make_region_edit(SERVE_P, clip_dim=1))["image"]
     moved = float((edited - img).abs().max())
     neutral_moved = float((neutral - img).abs().max())
-    log(f"serve main path: bake {res.bake_s:.2f} s (edited run {bake_edit:.2f} s), "
-        f"{res.fps:.2f} fps plain, {fps_edit:.2f} fps edited ({W}x{H}, u_res 400, 60 "
-        f"frames), peak memory {peak_plain:.2f} GiB plain (bake kept) / {peak_edit:.2f} "
-        f"GiB edited; test view 0: PSNR vs ground truth {psnr_gt:.3f} dB, vs render_baked "
-        f"(512 samples) {psnr_baked:.3f} dB; edit moves {moved:.3f}, neutral edit "
-        f"{neutral_moved:.3g}; min weights_sum {ws_min:.3g}; launches {launches}")
+    log(f"serve main path: bake {bake_s:.2f} s (edited run {bake_edit:.2f} s), "
+        f"{fps:.2f} fps plain, {fps_edit:.2f} fps edited ({W}x{H}, u_res 400, 60 "
+        f"frames), peak memory {peak_plain:.2f} GiB plain / {peak_edit:.2f} GiB edited; "
+        f"test view 0: opacity vs ground-truth alpha PSNR {alpha_psnr:.3f} dB, sweep vs "
+        f"render_baked (512 samples) {psnr_baked:.3f} dB; edit moves {moved:.3f}, neutral "
+        f"edit {neutral_moved:.3g}; min weights_sum {ws_min:.3g}; launches {launches}")
     if img.shape != (H, W, 3) or (H, W) != (800, 800) or not finite:
         raise AssertionError(f"sweep frame {tuple(img.shape)}, finite {finite}")
-    if not psnr_gt > SERVE_PSNR_FLOOR:
-        raise AssertionError(f"test view 0 PSNR {psnr_gt:.3f} dB <= floor {SERVE_PSNR_FLOOR}")
+    if not alpha_psnr > ALPHA_PSNR_FLOOR:
+        raise AssertionError(f"test view 0 opacity PSNR {alpha_psnr:.3f} dB <= floor "
+                             f"{ALPHA_PSNR_FLOOR}")
     if not psnr_baked > SWEEP_VS_BAKED_FLOOR:
         raise AssertionError(f"sweep vs render_baked {psnr_baked:.3f} dB <= "
                              f"{SWEEP_VS_BAKED_FLOOR}")
@@ -528,11 +568,15 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
 
-    from palettenerf_torch.ops import _cuda, scatter, window_gather
+    from concurrent.futures import ThreadPoolExecutor
+
+    from palettenerf_torch.ops import scatter, window_gather
 
     t0 = time.perf_counter()
     libs = [scatter.LIBRARY, window_gather.LIBRARY]
-    _cuda.build_all(libs)
+    with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, all at once
+        for f in [pool.submit(lib.build) for lib in libs]:
+            f.result()
     log(f"build: {', '.join(os.path.basename(lib.source) for lib in libs)} in "
         f"{time.perf_counter() - t0:.1f} s (in parallel)")
     for lib in libs:
@@ -542,13 +586,13 @@ def main() -> int:
     kernels = phase_kernels(torch, dev)
     wg_entry = phase_window_gather(torch, dev)
     phase_reference(torch, dev)
-    train_launches = phase_main_path(torch, dev)
+    train_launches, serve_ckpt = phase_main_path(torch, dev)
     for k in kernels:
         k["path"] = "train"
         k["launches"] = train_launches[k["name"]]
     kernels.append(wg_entry)
     phase_serve_reference(torch, dev)
-    phase_serve(torch, dev)
+    phase_serve(torch, dev, serve_ckpt)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

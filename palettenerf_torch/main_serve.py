@@ -21,7 +21,6 @@ import glob
 import os
 import time
 from dataclasses import dataclass
-from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -126,21 +125,12 @@ def orbit_camera(opt, dataset=None):
 
 @dataclass
 class ServeResult:
-    """What one run of ``main`` built and measured (kept for callers such as the
-    card smoke test)."""
+    """What one run of ``main`` measured and built."""
 
-    ckpt: str
-    num_basis: int
-    bake_s: float               # load-to-sweep-volume seconds (checkpoint read excluded)
+    bake_s: float   # load-to-sweep-volume seconds (checkpoint read excluded)
     fps: float
-    frames: list                # rendered images [H, W, 3] (CPU) when --out is given
-    sv: object                  # SweepVolume
-    baked: Optional[object]     # BakedVolume, kept only with keep_bake=True
-    basis_color: torch.Tensor   # [P, 3] on the device
-    edit: Optional[object]      # RegionEdit or None
-    dataset: Optional[object]   # the --data test split
-    pose_at: Callable
-    intrinsics: tuple
+    frames: list    # rendered images [H, W, 3] (CPU numpy) when --out is given
+    sv: object      # SweepVolume
 
 
 def _sync(dev: torch.device) -> None:
@@ -148,7 +138,7 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def main(argv=None, device="cuda", keep_bake: bool = False) -> ServeResult:
+def main(argv=None, device="cuda") -> ServeResult:
     from . import resolve_device
     from .models.palette import PaletteSpec
     from .render.baking import bake_palette, mask_with_bitfield
@@ -210,9 +200,7 @@ def main(argv=None, device="cuda", keep_bake: bool = False) -> ServeResult:
             mean_clip=mean_clip, std_clip=opt.edit_clip_std)._replace(delta_hsv=dh)
         print(f"[serve] recoloring basis {opt.edit_basis} "
               f"{palette[opt.edit_basis].round(3)} -> {opt.edit_rgb}", flush=True)
-    if not keep_bake:
-        del baked  # the f32 bake (~2.5 GB at 256^3); the sweep volume holds what frames need
-        baked = None
+    del baked  # the f32 bake (~2.5 GB at 256^3); the sweep volume holds what frames need
 
     dataset = None
     if opt.data:
@@ -249,8 +237,7 @@ def main(argv=None, device="cuda", keep_bake: bool = False) -> ServeResult:
 
         write_png(opt.out, (np.clip(frames[0], 0, 1) * 255).astype(np.uint8))
         print(f"[serve] wrote {opt.out}", flush=True)
-    return ServeResult(ckpt, P, bake_s, fps, frames, sv, baked, bc, edit, dataset, pose_at,
-                       intr)
+    return ServeResult(bake_s, fps, frames, sv)
 
 
 if __name__ == "__main__":

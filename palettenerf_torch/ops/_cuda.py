@@ -72,16 +72,6 @@ class CudaLibrary:
         return self._lib
 
 
-def build_all(libraries) -> None:
-    """Build several libraries at once: one ``nvcc`` process per source, all started
-    together (``build`` waits on its subprocess, so threads suffice)."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    with ThreadPoolExecutor(max_workers=max(1, len(libraries))) as pool:
-        for f in [pool.submit(lib.build) for lib in libraries]:
-            f.result()
-
-
 def check_launch(err: int, what: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a kernel's C entry point."""
     if err != 0:

@@ -2,10 +2,13 @@
 
 - train: one ``-O`` training epoch (100 steps with their grid refreshes) and one exact
   eval frame of ``data_proc/proc_toys`` at full width, after a warm-up epoch;
-- serve: one 800x800 sweep frame (u_res 400) of the committed checkpoint's 256^3 bake,
-  plain and with basis 0 recolored, after the serve CLI's own warm-up frames.
+- serve: one 800x800 sweep frame (u_res 400) of a palette checkpoint's 256^3 bake,
+  plain and with basis 0 recolored, after the serve CLI's own warm-up frames. The
+  default checkpoint is the one ``chip_smoke.py`` writes (full width, P = 5);
+  ``--serve_ckpt deploy/proc_toys`` serves the committed trained one.
 
     python -m palettenerf_torch.profile_main_path [--steps_warmup 100] [--only train|serve]
+        [--serve_ckpt PATH]
 
 Prints, for each window, the wall time, the summed device time of all kernels and its
 share of the wall time (busy share; one stream, so kernels do not overlap), the number
@@ -67,23 +70,28 @@ def profile_train(a):
     _profile(f"eval frame {data['W']}x{data['H']}", lambda: tr.eval_step_full(data))
 
 
-def profile_serve():
+def profile_serve(a):
     from . import main_serve
     from .render.palette_renderer import make_region_edit, region_edit_delta_hsv
     from .render.sweep import render_sweep
+    from .train.checkpoint import load_reference_checkpoint, palette_params_from_jax
 
-    res = main_serve.main([os.path.join(_ROOT, "deploy", "proc_toys"), "--data",
-                           os.path.join(_ROOT, "data_proc", "proc_toys"), "--bench",
-                           "--n_frames", "4"], device="cuda")
-    palette = res.basis_color.cpu().numpy()
-    new = palette.copy()
-    new[0] = (0.2, 0.9, 0.2)
-    edit = make_region_edit(res.num_basis, clip_dim=1)._replace(
-        delta_hsv=region_edit_delta_hsv(palette, new).numpy())
+    argv = [a.serve_ckpt, "--data", ARGS[0], "--bench", "--n_frames", "4"]
+    sv = main_serve.main(argv, device="cuda").sv
+    tree = load_reference_checkpoint(main_serve.find_checkpoint(a.serve_ckpt))["params"]
+    palette = palette_params_from_jax(tree)["basis_color"].clamp(0, 1)
+    new = palette.clone()
+    new[0] = torch.tensor([0.2, 0.9, 0.2])
+    edit = make_region_edit(palette.shape[0], clip_dim=1)._replace(
+        delta_hsv=region_edit_delta_hsv(palette.numpy(), new.numpy()).numpy())
+    opt = main_serve.build_parser().parse_args(argv)
+    pose_at, intr = main_serve.orbit_camera(opt, NeRFDataset(
+        Config(path=ARGS[0], bound=opt.bound, scale=opt.scale), type="test"))
+    palette = palette.cuda()
     for what, e in (("plain", None), ("edited (basis 0)", edit)):
         def frame(e=e):
-            render_sweep(res.sv, res.pose_at(0), res.intrinsics, 800, 800, u_res=400,
-                         basis_color=res.basis_color, edit=e)
+            render_sweep(sv, pose_at(0), intr, 800, 800, u_res=400, basis_color=palette,
+                         edit=e)
         frame()
         _profile(f"sweep frame 800x800 u_res 400, {what}", frame)
 
@@ -92,6 +100,8 @@ def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--steps_warmup", type=int, default=100)
     p.add_argument("--only", choices=["train", "serve"], default=None)
+    p.add_argument("--serve_ckpt", default=os.path.join(_ROOT, "results", "chip_smoke", "serve"),
+                   help="palette checkpoint or directory to serve")
     a = p.parse_args(argv)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -99,7 +109,7 @@ def main(argv=None):
     if a.only != "serve":
         profile_train(a)
     if a.only != "train":
-        profile_serve()
+        profile_serve(a)
 
 
 if __name__ == "__main__":

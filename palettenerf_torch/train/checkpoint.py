@@ -12,6 +12,7 @@ layers, ``"b"`` where the layer has a bias) into the port's parameter dict.
 ``ml_dtypes``: their hash tables are ``ml_dtypes`` bfloat16 arrays, which it reads as
 ``numpy.uint16`` arrays of the same 16-bit words. ``_leaf_to_tensor`` views such words
 as ``torch.bfloat16``, bit for bit (the JAX package writes no uint16 leaves of its own).
+``save_reference_checkpoint`` writes a parameter dict back in that layout (f32 leaves).
 """
 
 from __future__ import annotations
@@ -120,6 +121,31 @@ def load_reference_checkpoint(path: str) -> Dict[str, Any]:
     come back as ``uint16`` arrays of their words (see ``_leaf_to_tensor``)."""
     with open(path, "rb") as f:
         return _ReferenceUnpickler(f).load()
+
+
+def save_reference_checkpoint(path: str, params: Dict[str, Any], epoch: int = 0,
+                              global_step: int = 0,
+                              grid_state: Optional[Dict[str, torch.Tensor]] = None) -> str:
+    """Write the port's parameter dict as a pickle in the JAX package's layout
+    (``palettenerf_tpu/train/checkpoint.py:save_checkpoint``): f32 numpy leaves, MLPs as
+    lists of ``{"w"[, "b"]}`` layers, and ``grid_state`` as a dict of numpy arrays. The
+    JAX package's loader and ``load_reference_checkpoint`` both read it."""
+    def leaf(t):
+        return t.detach().cpu().float().numpy() if t.is_floating_point() else t.cpu().numpy()
+
+    def layer(w):
+        return {k: leaf(v) for k, v in w.items()} if isinstance(w, dict) else {"w": leaf(w)}
+
+    payload = {"epoch": epoch, "global_step": global_step,
+               "params": {k: [layer(w) for w in v] if isinstance(v, list) else leaf(v)
+                          for k, v in params.items()}}
+    if grid_state is not None:
+        payload["grid_state"] = {k: leaf(v) if torch.is_tensor(v) else v
+                                 for k, v in grid_state.items()}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(payload, f)
+    return path
 
 
 def save_checkpoint(ckpt_dir: str, name: str, epoch: int, payload: Dict[str, Any],

@@ -148,43 +148,3 @@ def test_window_gather_kernel_rejects_what_it_does_not_take(cuda_device):
         window_gather.window_gather(W.t().contiguous().t(), r, r.t().contiguous().t())
     with pytest.raises(ValueError, match="outside"):
         window_gather.window_gather(W, r + 8, r)
-
-
-def test_sweep_on_card_matches_cpu(cuda_device):
-    """Bake a small random palette field and render one frame, plain and recolored, on
-    the card and on the CPU from the same weights (bf16 shade on both)."""
-    from palettenerf_torch.models.mlp import init_mlp
-    from palettenerf_torch.models.palette import PaletteSpec
-    from palettenerf_torch.render.baking import bake_palette
-    from palettenerf_torch.render.palette_renderer import make_region_edit
-    from palettenerf_torch.render.sweep import build_sweep_volume, render_sweep
-
-    spec = PaletteSpec.build(bound=1.0, num_basis=4, grid_levels=4, log2_hashmap_size=13)
-    gen = torch.Generator().manual_seed(0)
-    n, g = spec.grid.output_dim, spec.geo_feat_dim
-    params = {"encoder": torch.rand((spec.grid.total_params, 2), generator=gen) * 8 - 4,
-              "encoder_palette": torch.rand((spec.grid.total_params, 2), generator=gen) * 8 - 4,
-              "sigma_net": init_mlp([n, 64, 1 + g], gen), "color_net": init_mlp([16 + g, 64, 64, 3], gen),
-              "diff_net": init_mlp([g, 64, 64, 3], gen), "basis_net": init_mlp([n + 3, 64, g], gen),
-              "offsets_radiance_net": init_mlp([g, 13], gen, bias=True),
-              "omega_net": init_mlp([g, 4], gen),
-              "basis_color": torch.tensor([[0.9, 0.2, 0.1], [0.1, 0.8, 0.3], [0.2, 0.3, 0.9],
-                                           [0.8, 0.8, 0.2]])}
-    params["sigma_net"][-1][:, 0] *= 8.0
-    pose = np.eye(4, dtype=np.float32)
-    pose[:3, 3] = [0.0, 0.0, -2.6]
-    edit = make_region_edit(4, clip_dim=1, mean_xyz=(0.2, 0.0, -0.1), std_xyz=0.3)._replace(
-        delta_hsv=np.array([[120, 1, 1], [0, 0.5, 1.5], [180, 1, 0.5], [0, 1, 1]], np.float32))
-    out = []
-    for dev in ("cpu", cuda_device):
-        p = {k: (v.to(dev) if torch.is_tensor(v) else
-                 [{a: b.to(dev) for a, b in w.items()} if isinstance(w, dict) else w.to(dev)
-                  for w in v]) for k, v in params.items()}
-        sv = build_sweep_volume(bake_palette(p, spec, resolution=32, vd_bands=2))
-        out.append([render_sweep(sv, pose, (60.0, 60.0, 32.0, 32.0), 64, 64, u_res=96,
-                                 basis_color=p["basis_color"], edit=e)["image"].cpu()
-                    for e in (None, edit)])
-    for a, b in zip(*out):
-        mse = float(((a - b) ** 2).mean())
-        assert -10 * np.log10(mse + 1e-12) > 40.0  # bf16 shade rounds differently
-    assert float((out[1][1] - out[1][0]).abs().max()) > 0.05

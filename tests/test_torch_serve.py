@@ -112,6 +112,33 @@ def test_palette_forward_matches_jax_small(small_model):
     assert float(got[0].std()) > 0.1  # the livelier tables give a varied density
 
 
+def test_saved_reference_checkpoint_reads_back_in_both_packages(small_model, tmp_path):
+    """The port writes a palette checkpoint in the JAX package's layout: the port reads
+    it back exactly, and the JAX package's loader + palette_forward agree with the port."""
+    jspec, tspec, _, tparams = small_model
+    gs = {"density_grid": torch.rand((1, 32 ** 3)),
+          "bitfield": torch.randint(0, 256, (32 ** 3 // 8,), dtype=torch.uint8)}
+    path = tckpt.save_reference_checkpoint(str(tmp_path / "p_ep0001.ckpt"), tparams,
+                                           epoch=1, grid_state=gs)
+    back = tckpt.load_reference_checkpoint(path)
+    again = tckpt.palette_params_from_jax(back["params"])
+    for k, v in tparams.items():
+        for a, b in (zip(v, again[k]) if isinstance(v, list) else [(v, again[k])]):
+            if isinstance(a, dict):
+                assert all(torch.equal(a[n], b[n]) for n in a), k
+            else:
+                assert torch.equal(a, b), k
+    np.testing.assert_array_equal(back["grid_state"]["bitfield"], gs["bitfield"].numpy())
+    assert back["grid_state"]["bitfield"].dtype == np.uint8
+
+    jtree = jax.tree_util.tree_map(jnp.asarray, jckpt.load_checkpoint(path)["params"])
+    x, d = _points(1024, 4)
+    ref = jpal.palette_forward(jtree, jspec, jnp.asarray(x), jnp.asarray(d))
+    got = tpal.palette_forward(tparams, tspec, T(x), T(d))
+    for name, g, r in zip(NAMES, got, ref):
+        _close(g, r)
+
+
 def test_palette_forward_matches_jax_deploy_checkpoint(deploy_model):
     """4,096 points through the full-width trained weights (tables as f32 on both sides)."""
     _, tparams, jtree = deploy_model
@@ -389,7 +416,8 @@ def test_main_serve_end_to_end_png(tmp_path):
             "--n_frames", "3", "--grid_levels", "4", "--log2_hashmap_size", "13",
             "--edit_basis", "1", "--out", out_png]
     res = main_serve.main(argv, device="cpu")
-    assert res.fps > 0 and res.num_basis == 4 and len(res.frames) == 3
+    assert res.fps > 0 and len(res.frames) == 3
+    assert res.sv.vols[0].shape[2] == 2 + 4 * 4 + 3 * 4  # P = 4 inferred, vd_bands 2
     png = read_png(out_png)
     assert png.shape == (64, 64, 3)
 
