@@ -12,12 +12,18 @@ Phases (each raises on failure; the script then exits non-zero):
    per source, all started together.
 3. kernels: holds each kernel against its plain PyTorch version on the card, at the
    shapes its path gives it and at edge cases, and times kernel, plain version and the
-   one PyTorch call that computes the same function. ``window_gather`` is on no path
-   (standalone): it must be bit-exact, and its launches are those of its timed run.
+   one PyTorch call that computes the same function. ``scatter_add`` is held and timed
+   in each of its kernels (column walk, one vector atomic per row in stream order,
+   scalar atomics) on the corner rows of uniform random points.
+   ``window_gather`` is on no path (standalone): it must be bit-exact, and its launches
+   are those of its timed run.
 4. train reference: one small ``-O`` train step on the card against the same step on
    the CPU (where the port runs the plain versions): loss and every gradient.
 5. train main path: the ``-O`` trainer of ``palettenerf_torch.main_nerf`` at full width
-   on ``data_proc/proc_toys`` for 300 steps, then one validation view.
+   on ``data_proc/proc_toys`` for 300 steps, then one validation view. Then the path
+   stream: the update stream one train batch gives ``scatter_add`` on the trained
+   field (rays marched through the trained occupancy grid), on which the kernel is
+   held against its plain version and timed again, with the stream's statistics.
    It ends by writing the serve path's checkpoint (see ``write_serve_checkpoint``).
 6. serve reference: a small palette field baked and swept on the card and on the CPU
    from the same weights: bake channels within tolerance, frames by PSNR (plain and
@@ -61,9 +67,11 @@ BAKE_RTOL, BAKE_ATOL = 1e-4, 1e-5  # card vs CPU bake: f32 sums in another order
 SWEEP_CARD_PSNR = 40.0     # card vs CPU sweep frame, bf16 shade (rounding flips)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
+SM_CLOCK_HZ = 1.7e9        # roughly; only sizes the head start of time_ms
 PALETTE = [[0.9, 0.2, 0.1], [0.1, 0.8, 0.3], [0.2, 0.3, 0.9], [0.8, 0.8, 0.2],
            [0.6, 0.4, 0.7]]
 SCATTER_RTOL = 1e-5        # of the row's summed |update|: f32 atomics reorder the sums
+SCATTER_PERIOD = 128       # corner columns per point: 16 levels x 8 corners
 TABLE_ROWS = 6_119_864     # full width: 16 levels, 2^19 rows per hashed level
 
 
@@ -78,12 +86,18 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
+def time_ms(torch, fn, iters: int = 10, warmup: int = 2, head_start_ms: float = 0.0) -> float:
+    """Device ms per call of ``fn`` between two CUDA events. ``head_start_ms``: the
+    device first spins that long, so that the host has queued every call before the
+    first one runs; a call shorter than its own launch overhead is then timed by what
+    the device takes, not by how fast the host can launch it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if head_start_ms:
+        torch.cuda._sleep(int(head_start_ms * 1e-3 * SM_CLOCK_HZ))
     start.record()
     for _ in range(iters):
         fn()
@@ -108,21 +122,69 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in _counted().items()}
 
 
-def check_scatter(torch, scatter, idx, vals, total, what):
-    """Kernel vs plain version; returns the max abs error. Raises on disagreement."""
-    got = scatter.scatter_add(idx, vals, total)
+def scatter_kernels(scatter, period):
+    """The kernels of ``scatter_add`` by name: the path's call (a period: the column
+    walk), the call without a period (one vector atomic per row in the stream's order),
+    and the yardstick both are timed against (scalar atomics, the first design)."""
+    return {"columns": lambda *a: scatter.scatter_add(*a, period),
+            "rows": lambda *a: scatter.scatter_add(*a),
+            "scalar": lambda *a: scatter._scatter_add(*a, period, scalar=True)}
+
+
+def check_scatter(torch, scatter, idx, vals, total, what, period):
+    """Every kernel of ``scatter_add`` vs the plain version; returns (max abs error, the
+    result of the path's call). Raises on disagreement or on a row the kernel refused."""
     ref = scatter.scatter_add_reference(idx, vals, total)
     scale = scatter.scatter_add_reference(idx, vals.abs(), total)
-    torch.cuda.synchronize()
-    err = (got - ref).abs()
-    bad = int((err > SCATTER_RTOL * scale).sum())
-    max_err = float(err.max())
-    log(f"scatter_add {what}: U={idx.numel()} C={vals.shape[1]} rows={total} "
-        f"max_abs_err={max_err:.3e} rows_out_of_tol={bad}")
-    if bad or not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"scatter_add {what}: {bad} rows differ from the plain "
-                             f"version beyond {SCATTER_RTOL} of their summed |update|")
-    return max_err, got
+    kernels = scatter_kernels(scatter, period)
+    max_err, first = 0.0, None
+    for name, call in kernels.items():
+        got = call(idx, vals, total)
+        torch.cuda.synchronize()
+        scatter.check_refused()
+        err = (got - ref).abs()
+        bad = int((err > SCATTER_RTOL * scale).sum())
+        if bad or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"scatter_add {what} ({name}): {bad} rows differ from the "
+                                 f"plain version beyond {SCATTER_RTOL} of their summed |update|")
+        max_err = max(max_err, float(err.max()))
+        first = got if first is None else first
+    log(f"scatter_add {what}: U={idx.numel()} C={vals.shape[1]} rows={total} kernels "
+        f"{list(kernels)} max_abs_err={max_err:.3e}")
+    return max_err, first
+
+
+def time_scatter(torch, scatter, idx, vals, total, what):
+    """Times of one stream: the path's call (column walk), the other kernels, the plain
+    version and ``index_add_``. ms per call, wrapper included (zero-fill of the output)."""
+    vals_f32 = vals.float()
+    out_f32 = torch.zeros((total, vals.shape[1]), device=idx.device)
+    t = {}
+    for name, call in scatter_kernels(scatter, SCATTER_PERIOD).items():
+        t["ms" if name == "columns" else f"{name}_ms"] = time_ms(
+            torch, lambda: call(idx, vals, total))
+    t["plain_ms"] = time_ms(torch, lambda: scatter.scatter_add_reference(idx, vals, total))
+    t["library_ms"] = time_ms(torch, lambda: out_f32.index_add_(0, idx, vals_f32))
+    log(f"scatter_add timing, {what} stream, U={idx.numel()}: column walk {t['ms']:.3f} ms, "
+        f"vector atomic per row in stream order {t['rows_ms']:.3f} ms, scalar atomics "
+        f"{t['scalar_ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, index_add_ "
+        f"{t['library_ms']:.3f} ms")
+    return t
+
+
+def stream_stats(torch, spec, idx, vals, what):
+    """What the stream asks of the atomic units: how many updates land on the dense
+    coarse levels, the longest same-row chain, how many updates are zero, and how many
+    repeat the row of the point before them in their column."""
+    coarse = float((idx < spec.offsets[5]).float().mean())
+    per_row = torch.bincount(idx.long(), minlength=spec.total_params)
+    zero = float((vals == 0).all(-1).float().mean())
+    cols = idx.view(-1, SCATTER_PERIOD)
+    repeat = float((cols[1:] == cols[:-1]).float().mean())
+    log(f"{what} stream: {100 * coarse:.2f}% of updates on levels 0-4 "
+        f"({spec.offsets[5]} rows), largest per-row update count {int(per_row.max())}, "
+        f"{int((per_row > 0).sum())} rows touched, {100 * zero:.2f}% of updates all-zero, "
+        f"{100 * repeat:.2f}% repeat the row of the point before")
 
 
 def phase_kernels(torch, dev):
@@ -131,35 +193,59 @@ def phase_kernels(torch, dev):
 
     spec = HashGridSpec.build(desired_resolution=2048, num_levels=16, level_dim=2,
                               log2_hashmap_size=19)
-    total, C = spec.total_params, spec.level_dim
+    total, C, P = spec.total_params, spec.level_dim, SCATTER_PERIOD
     gen = torch.Generator(device=dev).manual_seed(0)
     # the main path's shape: one encode of 4096 rays x 64 samples -> 33,554,432 corner rows
     x = torch.rand((4096 * 64, 3), generator=gen, device=dev)
     idx = hashgrid_fast.corner_indices(spec, x)[0].reshape(-1).contiguous()
     U = idx.numel()
     vals = (torch.randn((U, C), generator=gen, device=dev) * 1e-3).to(torch.bfloat16)
-    max_err, _ = check_scatter(torch, scatter, idx, vals, total, "main-path shape")
+    max_err, _ = check_scatter(torch, scatter, idx, vals, total, "main-path shape", P)
+
+    def ones(n, c):
+        return torch.ones((n, c), device=dev, dtype=torch.bfloat16)
 
     dup = (torch.arange(1 << 20, device=dev, dtype=torch.int32) % 7).contiguous()
-    _, got = check_scatter(torch, scatter, dup, torch.ones((1 << 20, 2), device=dev,
-                                                           dtype=torch.bfloat16),
-                           4096 * 2, "heavy duplicates")
+    _, got = check_scatter(torch, scatter, dup, ones(1 << 20, 2), 4096 * 2,
+                           "heavy duplicates", P)
     if float(got[:7].min()) != float((1 << 20) // 7):
         raise AssertionError("heavy duplicates: counts are not exact")
+    # equal rows one period apart, 16 points in a row, a ragged last chunk of points
+    n_pts = 8192 + 5
+    periodic = ((torch.arange(n_pts, device=dev, dtype=torch.int32) // 16)[:, None] * P
+                + torch.arange(P, device=dev, dtype=torch.int32)[None, :]).reshape(-1)
+    n_rows = int(periodic.max()) + 1
+    for c in (1, 2, 4, 8):
+        _, got = check_scatter(torch, scatter, periodic, ones(n_pts * P, c), n_rows,
+                               f"periodic duplicates C={c}", P)
+        counts = torch.bincount(periodic.long(), minlength=n_rows).float()
+        if not torch.equal(got, counts[:, None].expand(-1, c)):
+            raise AssertionError(f"periodic duplicates C={c}: counts are not exact")
     few = torch.arange(256, device=dev, dtype=torch.int32)
-    _, got = check_scatter(torch, scatter, few, torch.ones((256, 2), device=dev,
-                                                           dtype=torch.bfloat16),
-                           total, "empty tiles")
+    _, got = check_scatter(torch, scatter, few, ones(256, 2), total, "empty tiles", P)
     if float(got[256:].abs().max()) != 0.0:
         raise AssertionError("empty tiles: rows without updates are not zero")
     check_scatter(torch, scatter, idx[: 1 << 22].contiguous(),
-                  vals[: 1 << 22, :1].contiguous(), total, "C=1")
+                  vals[: 1 << 22, :1].contiguous(), total, "C=1", P)
+    vals4 = (torch.randn((1 << 22, 4), generator=gen, device=dev) * 1e-3).to(torch.bfloat16)
+    check_scatter(torch, scatter, idx[: 1 << 22].contiguous(), vals4, total, "C=4", P)
+    check_scatter(torch, scatter, idx[: 1 << 20].contiguous(), vals4[: 1 << 20, :3].contiguous(),
+                  total, "C=3 (general case)", P)
+    # a row out of range is refused: neither written nor silent
+    bad = few.clone()
+    bad[7] = total
+    got = scatter.scatter_add(bad, ones(256, 2), total, P)
+    torch.cuda.synchronize()
+    try:
+        scatter.check_refused()
+    except ValueError:
+        if float(got.sum()) != 2.0 * 255:
+            raise AssertionError("scatter_add wrote a row it refused") from None
+    else:
+        raise AssertionError("scatter_add passed a row out of range silently")
 
-    vals_f32 = vals.float()
-    out_f32 = torch.zeros((total, C), device=dev)
-    ms = time_ms(torch, lambda: scatter.scatter_add(idx, vals, total))
-    plain_ms = time_ms(torch, lambda: scatter.scatter_add_reference(idx, vals, total))
-    library_ms = time_ms(torch, lambda: out_f32.index_add_(0, idx, vals_f32))
+    stream_stats(torch, spec, idx, vals, "uniform")
+    t = time_scatter(torch, scatter, idx, vals, total, "uniform")
     n_bytes = U * (4 + 2 * C) + total * C * 4
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = U * C / FP32_FLOPS * 1e3
@@ -167,25 +253,25 @@ def phase_kernels(torch, dev):
         "name": "scatter_add", "route": "cuda",
         "source": "palettenerf_torch/csrc/scatter_add.cu",
         "replaces": "palettenerf_tpu/ops/pallas_scatter.py:102",
-        "launches": None, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        "launches": None, "max_abs_err": max_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_ms,
+        "library_ms": t["library_ms"], "rows_ms": t["rows_ms"], "scalar_ms": t["scalar_ms"],
     }
-    log(f"scatter_add timing at U={U}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"index_add_ {library_ms:.3f} ms, bound {entry['bound_ms']:.4f} ms "
-        f"({n_bytes / 1e6:.1f} MB)")
+    log(f"scatter_add bound {entry['bound_ms']:.4f} ms ({n_bytes / 1e6:.1f} MB)")
     return [entry]
 
 
 def phase_window_gather(torch, dev):
     """window_gather against its plain version, bit for bit: the shapes of
-    tests/test_window_gather.py, Rw 1 and 32, bf16 windows and M8 = 65,536; then the
-    timed standalone run at the largest shape (its launches are the entry's count)."""
+    tests/test_window_gather.py, Rw 1 and 32, bf16 windows, M8 from 1 to 65,536; an
+    index out of range; then the timed standalone run at the largest shape (its launches
+    are the entry's count)."""
     from palettenerf_torch.ops import window_gather as wg
 
     gen = torch.Generator(device=dev).manual_seed(2)
     cases = [(8, 100, torch.float32), (16, 64, torch.float32), (1, 4096, torch.float32),
-             (32, 4096, torch.float32), (16, 4096, torch.bfloat16),
+             (32, 4096, torch.float32), (16, 4096, torch.bfloat16), (32, 1, torch.float32),
+             (32, 3, torch.bfloat16), (1, 65536, torch.bfloat16),
              (32, 65536, torch.bfloat16), (32, 65536, torch.float32)]
     max_err = 0.0
     for rows, m8, dt in cases:
@@ -199,18 +285,34 @@ def phase_window_gather(torch, dev):
             raise AssertionError(f"window_gather Rw={rows} M8={m8} {dt}: not bit-exact "
                                  f"against W[r, c]")
         max_err = max(max_err, float((got.float() - ref.float()).abs().max()))
+    wg.check_refused()
     log(f"window_gather: bit-exact at {len(cases)} shapes (Rw 1..32, M8 up to 65536, "
         f"f32 and bf16), max_abs_err {max_err}")
 
-    # timed at the largest shape (the last case): kernel alone, plain version, torch.take
+    # an index outside the window is refused: zero bits written, and not silently
+    r_bad = r.clone()
+    r_bad[5, 9] = 32
+    got = wg.window_gather(W, r_bad, c)
+    torch.cuda.synchronize()
+    try:
+        wg.check_refused()
+    except ValueError:
+        ref[5, 9] = 0
+        if not torch.equal(got, ref):
+            raise AssertionError("window_gather: a refused index changed other outputs") from None
+    else:
+        raise AssertionError("window_gather passed an index out of range silently")
+
+    # timed at the largest shape (the last case): the wrapper, plain version, torch.take
     rows, m8, _ = cases[-1]
     flat_idx = (r.long() * 128 + c.long())
     wg.window_gather.launches = 0
-    ms = time_ms(torch, lambda: wg.launch(W, r, c), iters=50, warmup=5)
+    ahead = dict(iters=50, warmup=5, head_start_ms=20.0)  # the calls are ~40 us each
+    ms = time_ms(torch, lambda: wg.window_gather(W, r, c), **ahead)
     launches = wg.window_gather.launches
-    wrapper_ms = time_ms(torch, lambda: wg.window_gather(W, r, c), iters=20)
-    plain_ms = time_ms(torch, lambda: wg.window_gather_reference(W, r, c), iters=50, warmup=5)
-    library_ms = time_ms(torch, lambda: torch.take(W.reshape(-1), flat_idx), iters=50, warmup=5)
+    back_to_back_ms = time_ms(torch, lambda: wg.window_gather(W, r, c), iters=50, warmup=5)
+    plain_ms = time_ms(torch, lambda: wg.window_gather_reference(W, r, c), **ahead)
+    library_ms = time_ms(torch, lambda: torch.take(W.reshape(-1), flat_idx), **ahead)
     n_bytes = m8 * 128 * (4 + 4 + 4) + rows * 128 * 4
     entry = {
         "name": "window_gather", "route": "cuda",
@@ -218,10 +320,11 @@ def phase_window_gather(torch, dev):
         "replaces": "palettenerf_tpu/ops/pallas_window_gather.py:45",
         "path": "standalone", "launches": launches, "max_abs_err": max_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes", "library_ms": library_ms,
+        "bound_by": "bytes", "library_ms": library_ms, "back_to_back_ms": back_to_back_ms,
     }
-    log(f"window_gather timing at Rw={rows} M8={m8} f32: kernel {ms:.4f} ms "
-        f"(wrapper with range check {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+    log(f"window_gather timing at Rw={rows} M8={m8} f32: kernel {ms:.4f} ms (the "
+        f"wrapper, calls queued ahead; {back_to_back_ms:.4f} ms per call launched back to back), "
+        f"plain {plain_ms:.4f} ms, "
         f"torch.take {library_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms "
         f"({n_bytes / 1e6:.1f} MB), {launches} launches")
     return entry
@@ -340,7 +443,46 @@ def phase_main_path(torch, dev):
         raise AssertionError(f"render shape {out['image'].shape}")
     if not val_psnr > PSNR_FLOOR:
         raise AssertionError(f"validation PSNR {val_psnr:.3f} dB <= floor {PSNR_FLOOR}")
-    return launches, write_serve_checkpoint(torch, trainer)
+    path_times = phase_path_stream(torch, trainer, train_ds)
+    return launches, write_serve_checkpoint(torch, trainer), path_times
+
+
+def phase_path_stream(torch, trainer, train_ds):
+    """``scatter_add`` on the stream one train batch gives it on the trained field: 4096
+    random pixels of training view 0, marched through the trained occupancy grid as the
+    train step marches them (jittered, 64 sample slots per ray), the sample positions
+    through the encoder's corner indices, seeded bf16 values that are zero in the padded
+    sample slots (their cotangents are zero in the train step). Held against the plain
+    version, then timed; returns the times with ``path_`` before each name."""
+    from palettenerf_torch.data.rays import gen_rays_torch
+    from palettenerf_torch.ops import hashgrid_fast, scatter
+    from palettenerf_torch.ops.rays import near_far_from_aabb
+    from palettenerf_torch.render.nerf_renderer import _aabb, _march
+
+    dev, spec, st = trainer.device, trainer.spec.grid, trainer.train_settings
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n = trainer.opt.num_rays
+    inds = torch.randint(0, train_ds.H * train_ds.W, (n,), generator=gen, device=dev)
+    rays_o, rays_d = gen_rays_torch(torch.as_tensor(train_ds.poses[0]).to(dev),
+                                    [float(v) for v in train_ds.intrinsics], train_ds.H,
+                                    train_ds.W, inds)
+    nears, fars = near_far_from_aabb(rays_o, rays_d, _aabb(st, dev), st.min_near)
+    m = _march(rays_o, rays_d, nears, fars, trainer.grid_state.bitfield, st, st.num_samples,
+               torch.rand((n,), generator=gen, device=dev))
+    x01 = (m.xyzs.reshape(-1, 3) + st.bound) / (2.0 * st.bound)
+    idx = hashgrid_fast.corner_indices(spec, x01)[0].reshape(-1).contiguous()
+    U, C = idx.numel(), spec.level_dim
+    if U != n * st.num_samples * SCATTER_PERIOD:
+        raise AssertionError(f"path stream has {U} updates")
+    vals = torch.randn((U, C), generator=gen, device=dev) * 1e-3
+    vals = (vals.view(-1, SCATTER_PERIOD, C) * m.mask.reshape(-1, 1, 1)).view(U, C)
+    vals = vals.to(torch.bfloat16)
+    log(f"path stream: {n} rays x {st.num_samples} slots, "
+        f"{100 * float(m.mask.float().mean()):.2f}% of the slots hold a sample")
+    check_scatter(torch, scatter, idx, vals, spec.total_params, "path stream", SCATTER_PERIOD)
+    stream_stats(torch, spec, idx, vals, "path")
+    t = time_scatter(torch, scatter, idx, vals, spec.total_params, "path")
+    return {f"path_{k}": v for k, v in t.items()}
 
 
 def write_serve_checkpoint(torch, trainer) -> str:
@@ -586,10 +728,11 @@ def main() -> int:
     kernels = phase_kernels(torch, dev)
     wg_entry = phase_window_gather(torch, dev)
     phase_reference(torch, dev)
-    train_launches, serve_ckpt = phase_main_path(torch, dev)
+    train_launches, serve_ckpt, path_times = phase_main_path(torch, dev)
     for k in kernels:
         k["path"] = "train"
         k["launches"] = train_launches[k["name"]]
+        k.update(path_times)
     kernels.append(wg_entry)
     phase_serve_reference(torch, dev)
     phase_serve(torch, dev, serve_ckpt)

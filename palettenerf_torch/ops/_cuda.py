@@ -5,6 +5,10 @@ Hopper (``sm_90a``) into a shared library under ``palettenerf_torch/build/`` (li
 in ``.gitignore``) at first use, and loaded with ``ctypes``. No PyTorch headers are
 included, so a build takes seconds. The library file name carries a hash of the
 source and flags, so an edited source is rebuilt and a stale build is never loaded.
+
+A kernel never reads outside its arrays: input it refuses (an index out of range) is
+counted in a ``RefusedCounter`` on the device, which the caller reads where the host
+synchronises anyway, so a wrapper needs no device-to-host read of its own.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ import os
 import shutil
 import subprocess
 import time
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -35,10 +41,15 @@ def _nvcc() -> str:
 
 
 class CudaLibrary:
-    """One ``csrc/<name>.cu`` built into a shared library, loaded on first ``get()``."""
+    """One ``csrc/<name>.cu`` built into a shared library, loaded on first ``get()``.
 
-    def __init__(self, name: str):
+    ``signatures`` maps each C function to its ctypes argument types; they are set once,
+    when the library is loaded. Every function returns a ``cudaError_t`` as an int.
+    """
+
+    def __init__(self, name: str, signatures: dict):
         self.name = name
+        self.signatures = signatures
         self.source = os.path.join(CSRC_DIR, f"{name}.cu")
         self._lib = None
         self.build_seconds = None
@@ -68,8 +79,43 @@ class CudaLibrary:
 
     def get(self) -> ctypes.CDLL:
         if self._lib is None:
-            self._lib = ctypes.CDLL(self.build())
+            lib = ctypes.CDLL(self.build())
+            for fn_name, argtypes in self.signatures.items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            self._lib = lib
         return self._lib
+
+
+class RefusedCounter:
+    """Per CUDA device, one int32 that a kernel increments for each input element it
+    refuses (and does not use). ``check`` reads the counters back, which synchronises
+    with the device, so call it where the host waits for the device anyway."""
+
+    def __init__(self, what: str):
+        self.what = what
+        self._counters = {}
+
+    def on(self, device: torch.device) -> torch.Tensor:
+        device = torch.device(device)
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if device not in self._counters:
+            self._counters[device] = torch.zeros(1, dtype=torch.int32, device=device)
+        return self._counters[device]
+
+    def check(self) -> None:
+        """Raise ValueError if a launch since the last check refused anything."""
+        refused = {}
+        for device, counter in self._counters.items():  # read and zero every device first
+            n = int(counter)
+            if n:
+                counter.zero_()
+                refused[str(device)] = n
+        if refused:
+            raise ValueError(f"{self.what}: {sum(refused.values())} indices outside their "
+                             f"range were refused ({refused}; nothing was read or written "
+                             f"at them)")
 
 
 def check_launch(err: int, what: str) -> None:

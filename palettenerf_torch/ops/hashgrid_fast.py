@@ -79,14 +79,17 @@ def corner_indices(spec: HashGridSpec, x: torch.Tensor):
 
 
 def scatter_table_grad(idx: torch.Tensor, upd: torch.Tensor, total_rows: int,
-                       scatter_dtype: Optional[torch.dtype]) -> torch.Tensor:
+                       scatter_dtype: Optional[torch.dtype],
+                       period: Optional[int] = None) -> torch.Tensor:
     """One batched scatter-add of updates upd [U, C] at rows idx [U] (``_scatter_global``).
 
     bf16: updates rounded to bf16, summed in f32 by the scatter kernel (CPU: its plain
-    version). Otherwise an f32 ``index_add_``.
+    version). Otherwise an f32 ``index_add_``. ``period``: the number of corner columns
+    per point when idx is ``[M, period]`` flattened; the kernel then works through the
+    table a few levels at a time (``ops/scatter.py``).
     """
     if scatter_dtype == torch.bfloat16:
-        return scatter_add(idx, upd.to(torch.bfloat16).contiguous(), total_rows)
+        return scatter_add(idx, upd.to(torch.bfloat16).contiguous(), total_rows, period)
     if scatter_dtype not in (None, torch.float32):
         raise ValueError(f"unsupported scatter_dtype {scatter_dtype}")
     out = torch.zeros((total_rows, upd.shape[1]), dtype=torch.float32, device=upd.device)
@@ -122,7 +125,8 @@ class _HashGridEncode(torch.autograd.Function):
         M = idx.shape[0]
         g = g.reshape(M, L, C).masked_fill(oob[:, None, None], 0)
         upd = (g[:, :, None, :] * w.reshape(M, L, K, 1)).reshape(M * L * K, C)
-        grad = scatter_table_grad(idx.reshape(-1), upd, spec.total_params, ctx.scatter_dtype)
+        grad = scatter_table_grad(idx.reshape(-1), upd, spec.total_params, ctx.scatter_dtype,
+                                  period=L * K)
         return grad.to(ctx.table_dtype), None, None, None
 
 

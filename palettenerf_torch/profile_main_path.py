@@ -12,7 +12,8 @@
 
 Prints, for each window, the wall time, the summed device time of all kernels and its
 share of the wall time (busy share; one stream, so kernels do not overlap), the number
-of kernel launches, and the operators with the most device time.
+of kernel launches, the operators with the most device time, and the device time per
+launch of the hand-written scatter kernel on that path.
 """
 
 from __future__ import annotations
@@ -50,6 +51,12 @@ def _profile(what: str, fn, top: int = 15):
     ops = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total, reverse=True)
     for e in ops[:top]:
         print(f"   {e.self_device_time_total / 1e3:10.2f} ms  {e.count:7d} calls  {e.key[:90]}")
+    # the hand-written scatter kernel (csrc/scatter_add.cu), whatever its rank above
+    own = [e for e in kernels if "scatter_add_" in e.name]
+    if own:
+        total = sum(e.device_time_total for e in own)
+        print(f"   scatter_add kernel: {len(own)} launches, {total / len(own) / 1e3:.3f} ms of "
+              f"device time per launch ({own[0].name[:60]})")
 
 
 def profile_train(a):

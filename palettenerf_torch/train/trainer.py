@@ -35,6 +35,7 @@ from ..data.rays import gen_rays_torch
 from ..models.nerf import NeRFSpec, init_nerf, nerf_density, param_list
 from ..ops.occupancy import (GridState, init_grid_state, mark_untrained_grid,
                              update_density_grid)
+from ..ops.scatter import check_refused
 from ..render.nerf_renderer import RenderSettings, render_nerf_eval, render_nerf_train
 from . import checkpoint as ckpt_lib
 from .metrics import PSNRMeter
@@ -263,6 +264,7 @@ class Trainer:
             losses.append(loss)
             self.global_step += 1
         avg = float(torch.stack(losses).mean())
+        check_refused()  # the host has just waited for the device: rows the kernel refused
         self.stats["loss"].append(avg)
         self.log(f"[epoch {self.epoch}] loss={avg:.6f} "
                  f"({B} steps, {time.time() - t0:.1f}s, step={self.global_step})")

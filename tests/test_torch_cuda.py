@@ -27,20 +27,46 @@ def _within(got, ref, scale, rtol):
     return bool(((got - ref).abs() <= rtol * scale + 1e-12).all())
 
 
-def test_scatter_kernel_matches_plain_version(cuda_device):
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("period", [None, 128])
+def test_scatter_kernel_matches_plain_version(cuda_device, C, period):
+    gen = torch.Generator(device=cuda_device).manual_seed(C)
     total, U = 100_003, 1 << 20
-    for C in (1, 2, 4):
-        idx = torch.randint(0, total, (U,), generator=gen, device=cuda_device,
-                            dtype=torch.int32)
-        vals = torch.randn((U, C), generator=gen, device=cuda_device).to(torch.bfloat16)
-        before = scatter.scatter_add.launches
-        got = scatter.scatter_add(idx, vals, total)
-        assert scatter.scatter_add.launches == before + 1
-        ref = scatter.scatter_add_reference(idx, vals, total)
-        scale = scatter.scatter_add_reference(idx, vals.abs(), total)
-        torch.cuda.synchronize()
-        assert _within(got, ref, scale, 1e-5)  # f32 atomics sum in another order
+    idx = torch.randint(0, total, (U,), generator=gen, device=cuda_device, dtype=torch.int32)
+    vals = torch.randn((U, C), generator=gen, device=cuda_device).to(torch.bfloat16)
+    before = scatter.scatter_add.launches
+    got = scatter.scatter_add(idx, vals, total, period)
+    assert scatter.scatter_add.launches == before + 1
+    ref = scatter.scatter_add_reference(idx, vals, total)
+    scale = scatter.scatter_add_reference(idx, vals.abs(), total)
+    torch.cuda.synchronize()
+    scatter.check_refused()
+    assert _within(got, ref, scale, 1e-5)  # f32 atomics sum in another order
+
+
+# the path's call (column walk), the call without a period (one vector atomic per row in
+# stream order) and the yardstick they are timed against: (period, scalar) of _scatter_add
+KERNELS = {"columns": (128, False), "rows": (None, False), "scalar": (128, True)}
+
+
+@pytest.mark.parametrize("C", [1, 2, 4, 8])
+@pytest.mark.parametrize("kernel", list(KERNELS))
+def test_scatter_kernel_exact_on_periodic_duplicates(cuda_device, C, kernel):
+    """Equal rows one period apart (12 points in a row share each row), a zero-valued
+    stretch, and a point count that no walk length or block divides: counts are exact."""
+    n_pts, P = 1000 + 3, 128
+    point = torch.arange(n_pts, device=cuda_device, dtype=torch.int32)
+    idx = ((point // 12)[:, None] * P
+           + torch.arange(P, device=cuda_device, dtype=torch.int32)[None, :]).reshape(-1)
+    vals = torch.ones((n_pts, P, C), device=cuda_device, dtype=torch.bfloat16)
+    vals[200:300] = 0
+    vals = vals.reshape(-1, C)
+    total = int(idx.max()) + 7
+    got = scatter._scatter_add(idx, vals, total, *KERNELS[kernel])
+    torch.cuda.synchronize()
+    scatter.check_refused()
+    assert torch.equal(got, scatter.scatter_add_reference(idx, vals, total))
+    assert float(got.max()) == 12.0 and float(got[-6:].abs().max()) == 0.0
 
 
 def test_scatter_kernel_exact_on_duplicates_and_empty_rows(cuda_device):
@@ -50,23 +76,69 @@ def test_scatter_kernel_exact_on_duplicates_and_empty_rows(cuda_device):
     torch.cuda.synchronize()
     counts = torch.bincount(idx.long(), minlength=1000).float()
     assert torch.equal(got[:, 0], counts) and torch.equal(got[:, 1], counts)
+    before = scatter.scatter_add.launches
     empty = scatter.scatter_add(torch.zeros(0, dtype=torch.int32, device=cuda_device),
                                 torch.zeros((0, 2), dtype=torch.bfloat16, device=cuda_device), 7)
     assert empty.shape == (7, 2) and float(empty.abs().max()) == 0.0
+    assert scatter.scatter_add.launches == before  # nothing to launch
 
 
 def test_scatter_kernel_rejects_what_it_does_not_take(cuda_device):
     idx = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    ones = torch.ones((4, 2), device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(TypeError):
         scatter.scatter_add(idx, torch.ones((4, 2), device=cuda_device), 8)  # f32 vals
     with pytest.raises(TypeError):
-        scatter.scatter_add(idx.long(), torch.ones((4, 2), device=cuda_device,
-                                                   dtype=torch.bfloat16), 8)
+        scatter.scatter_add(idx.long(), ones, 8)
     with pytest.raises(ValueError):
         scatter.scatter_add(idx, torch.ones((4, 2), dtype=torch.bfloat16), 8)  # mixed devices
-    with pytest.raises(ValueError, match="outside"):
-        scatter.scatter_add(idx + 9, torch.ones((4, 2), device=cuda_device,
-                                                dtype=torch.bfloat16), 8)
+    with pytest.raises(ValueError, match="period"):
+        scatter.scatter_add(idx, ones, 8, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        scatter.scatter_add(idx, torch.ones((4, 4), device=cuda_device,
+                                            dtype=torch.bfloat16)[:, ::2], 8)
+    flat = torch.ones(9, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        scatter.scatter_add(idx, flat[1:].view(4, 2), 8)  # rows at an odd 2-byte offset
+
+
+@pytest.mark.parametrize("kernel", list(KERNELS))
+def test_scatter_kernel_refuses_rows_out_of_range(cuda_device, kernel):
+    """A row outside [0, total_rows) is never written and never silent: the call
+    returns without reading the device, the next check_refused() raises, once."""
+    idx = torch.tensor([0, 1, 9, 3, 0, 1, -1, 3], dtype=torch.int32, device=cuda_device)
+    period, scalar = KERNELS[kernel]
+    got = scatter._scatter_add(idx, torch.ones((8, 2), device=cuda_device, dtype=torch.bfloat16),
+                               8, period and 4, scalar)
+    torch.cuda.synchronize()
+    want = torch.zeros((8, 2), device=cuda_device)
+    want[[0, 1, 3]] = 2.0
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="2 indices outside"):
+        scatter.check_refused()
+    scatter.check_refused()
+
+
+def test_wrappers_read_nothing_back_from_the_card(cuda_device):
+    """No device-to-host read (which would stall the launch queue) in either wrapper:
+    PyTorch's sync debug mode turns any synchronising call into an error."""
+    idx = torch.arange(1 << 12, dtype=torch.int32, device=cuda_device) % 77
+    vals = torch.ones((1 << 12, 2), device=cuda_device, dtype=torch.bfloat16)
+    W = torch.randn((8, 128), device=cuda_device)
+    r = torch.zeros((4, 128), dtype=torch.int32, device=cuda_device)
+    scatter.scatter_add(idx, vals, 100, 128)      # builds and loads outside the guard
+    window_gather.window_gather(W, r, r)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = scatter.scatter_add(idx, vals, 100, 128)
+        got_rows = scatter.scatter_add(idx, vals, 100)
+        picked = window_gather.window_gather(W, r, r)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(got, got_rows) and float(got.sum()) == 2.0 * (1 << 12)
+    assert torch.equal(picked, W[0, 0].expand(4, 128))
 
 
 def test_bf16_table_grad_on_card_matches_cpu(cuda_device):
@@ -121,12 +193,12 @@ def test_train_step_on_card_matches_cpu(cuda_device, tmp_path):
         assert float((a - b).abs().max()) <= 1e-2 * float(a.abs().max())
 
 
-@pytest.mark.parametrize("rows", [1, 8, 16, 32])
+@pytest.mark.parametrize("rows", [1, 8, 32])
+@pytest.mark.parametrize("m8", [1, 3, 100, 65536])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_window_gather_kernel_is_bit_exact(cuda_device, rows, dtype):
-    gen = torch.Generator(device=cuda_device).manual_seed(rows)
+def test_window_gather_kernel_is_bit_exact(cuda_device, rows, m8, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + m8)
     W = torch.randn((rows, 128), generator=gen, device=cuda_device).to(dtype)
-    m8 = 1000 + rows
     r = torch.randint(0, rows, (m8, 128), generator=gen, device=cuda_device, dtype=torch.int32)
     c = torch.randint(0, 128, (m8, 128), generator=gen, device=cuda_device, dtype=torch.int32)
     before = window_gather.window_gather.launches
@@ -134,6 +206,7 @@ def test_window_gather_kernel_is_bit_exact(cuda_device, rows, dtype):
     assert window_gather.window_gather.launches == before + 1
     ref = window_gather.window_gather_reference(W, r, c)
     torch.cuda.synchronize()
+    window_gather.check_refused()
     assert got.dtype == dtype and torch.equal(got, ref)
 
 
@@ -146,5 +219,26 @@ def test_window_gather_kernel_rejects_what_it_does_not_take(cuda_device):
         window_gather.window_gather(W.cpu(), r, r)  # mixed devices
     with pytest.raises(ValueError):
         window_gather.window_gather(W.t().contiguous().t(), r, r.t().contiguous().t())
-    with pytest.raises(ValueError, match="outside"):
-        window_gather.window_gather(W, r + 8, r)
+    flat = torch.zeros(4 * 128 + 1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        window_gather.window_gather(W, flat[1:].view(4, 128), r)  # 4 bytes off a 16-byte line
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_gather_kernel_refuses_indices_out_of_range(cuda_device, dtype):
+    """An index outside the window is never used as an address: its output is zero
+    bits, every other output is right, and the next check_refused() raises, once."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    W = (torch.rand((8, 128), generator=gen, device=cuda_device) + 1.0).to(dtype)
+    r = torch.randint(0, 8, (5, 128), generator=gen, device=cuda_device, dtype=torch.int32)
+    c = torch.randint(0, 128, (5, 128), generator=gen, device=cuda_device, dtype=torch.int32)
+    want = window_gather.window_gather_reference(W, r, c)
+    r[0, 1], r[4, 127], c[2, 64], c[3, 3] = 8, -1, 128, -5
+    for i, j in ((0, 1), (4, 127), (2, 64), (3, 3)):
+        want[i, j] = 0
+    got = window_gather.window_gather(W, r, c)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="4 indices outside"):
+        window_gather.check_refused()
+    window_gather.check_refused()

@@ -25,7 +25,8 @@ def _inputs(rows, m8, dtype, seed):
 
 @pytest.mark.parametrize("rows,m8,dtype", [
     (8, 100, jnp.float32), (16, 64, jnp.float32),     # tests/test_window_gather.py
-    (1, 40, jnp.float32), (32, 24, jnp.float32), (16, 64, jnp.bfloat16)])
+    (1, 40, jnp.float32), (32, 24, jnp.float32), (16, 64, jnp.bfloat16),
+    (32, 8, jnp.bfloat16), (1, 16, jnp.bfloat16)])
 def test_plain_version_matches_pallas_interpret_bit_exact(rows, m8, dtype):
     jW, tW, r, c = _inputs(rows, m8, dtype, seed=rows + m8)
     ref = np.asarray(jax_window_gather(jW, jnp.asarray(r), jnp.asarray(c), interpret=True)
@@ -52,3 +53,29 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         wg.window_gather(W, r, r[:2])
     with pytest.raises(TypeError):
         wg.window_gather(W, r.long(), r)
+
+
+def test_cpu_path_checks_the_range_at_the_call():
+    """On the CPU the range check raises at the call; the refused-index counter belongs
+    to the kernel and stays untouched."""
+    W = torch.zeros((4, 128), dtype=torch.bfloat16)
+    r = torch.zeros((3, 128), dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"r spans \[0, 4\]"):
+        wg.window_gather(W, r + torch.eye(3, 128, dtype=torch.int32) * 4, r)
+    with pytest.raises(ValueError, match=r"c spans \[-1, 0\]"):
+        wg.window_gather(W, r, r - torch.eye(3, 128, dtype=torch.int32))
+    wg.check_refused()
+
+
+@pytest.mark.parametrize("m8", [1, 3])
+def test_cpu_path_takes_any_number_of_index_rows(m8):
+    rng = np.random.default_rng(m8)
+    W = torch.from_numpy(rng.normal(size=(32, 128)).astype(np.float32))
+    r = torch.from_numpy(rng.integers(0, 32, (m8, 128)).astype(np.int32))
+    c = torch.from_numpy(rng.integers(0, 128, (m8, 128)).astype(np.int32))
+    got = wg.window_gather(W, r[:, ::1], c)
+    assert torch.equal(got, W[r.long(), c.long()])
+    # an offset view (not 16-byte aligned) is the kernel's to refuse, not the plain version's
+    flat = torch.zeros(m8 * 128 + 1, dtype=torch.int32)
+    flat[1:] = r.reshape(-1)
+    assert torch.equal(wg.window_gather(W, flat[1:].view(m8, 128), c), got)
