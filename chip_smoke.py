@@ -24,18 +24,28 @@ Phases (each raises on failure; the script then exits non-zero):
    stream: the update stream one train batch gives ``scatter_add`` on the trained
    field (rays marched through the trained occupancy grid), on which the kernel is
    held against its plain version and timed again, with the stream's statistics.
-   It ends by writing the serve path's checkpoint (see ``write_serve_checkpoint``).
-6. serve reference: a small palette field baked and swept on the card and on the CPU
+6. palette reference: one small ``-O`` palette train step (smooth loss on, basis colors
+   unfrozen, hist weights present) on the card against the same step on the CPU: loss
+   and every gradient; ``encoder`` and ``sigma_net`` get none on either.
+7. palette main path, through ``palettenerf_torch.main_palette.main`` on the stage-1
+   workspace of phase 5, at full width: RGBXY palette extraction from sweep renders of
+the training views (``--extract_palette --extract_via_sweep``), then 300 palette training steps (three epochs, one per
+   schedule phase: colors frozen, + smooth loss, + colors unfrozen) with the test-split
+   evaluation and renders the CLI ends with; then the checks of what moved and what
+   did not, and one validation view.
+8. serve reference: a small palette field baked and swept on the card and on the CPU
    from the same weights: bake channels within tolerance, frames by PSNR (plain and
    with a RegionEdit recolor).
-7. serve main path: ``python -m palettenerf_torch.main_serve <ckpt> --data
-   data_proc/proc_toys --bench`` at full width: 256^3 bake with vd_bands=2, bitfield
-   mask, sweep volume, 60 frames of 800x800 at u_res 400, once with ``--edit_basis 0``
-   and once plain; then, on the same bake, test view 0's opacity against its ground
-   truth alpha, the sweep against ``render_baked``, and the edit checks.
+9. serve main path: ``python -m palettenerf_torch.main_serve <palette workspace> --data
+   data_proc/proc_toys --bench`` on the checkpoint phase 7 trained, at full width: 256^3
+   bake with vd_bands=2, bitfield mask, sweep volume, 60 frames of 800x800 at u_res 400,
+   once with ``--edit_basis 0`` and once plain; then, on the same bake, test view 0
+   against its image (color and opacity), the sweep against ``render_baked``, and the
+   edit checks.
 
 Launch counts are zeroed just before each main path and read just after; every kernel
-of the train path must have launched there (the serve path runs no kernel of its own).
+of the train and palette paths must have launched there (the serve path runs no kernel
+of its own).
 The line before the last carries the card's name and power limit; before it, one JSON
 line lists every kernel with its numbers. The last line is the result object.
 Exits non-zero, printing no result, without a CUDA device or outside a checkout.
@@ -53,15 +63,30 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCENE = os.path.join(ROOT, "data_proc", "proc_toys")
 WORKSPACE = os.path.join(ROOT, "results", "chip_smoke")
+# the stage-1 workspace, relative to ROOT (the script changes into it): main_palette
+# mirrors it under results_palette/ by replacing "results" in the path as given
+NERF_WS = os.path.join("results", "chip_smoke", "version_1")
 
 # proc_toys configuration (scripts/configs_proc/proc_toys.sh) with -O, default widths
 MAIN_ARGS = [SCENE, "-O", "--bound", "1", "--scale", "0.8", "--bg_radius", "0",
              "--density_thresh", "10", "--iters", "8000", "--seed", "0"]
 EPOCHS = 3                 # 100 training views -> 300 steps
 PSNR_FLOOR = 20.0          # validation view 0 after 300 steps
-SERVE_P = 5                # palette size of the committed proc_toys palette checkpoint
+# the palette stages: scripts/run_blender.sh with scripts/configs_proc/proc_toys.sh
+PALETTE_ARGS = [SCENE, NERF_WS, "-O", "--bound", "1", "--scale", "0.8", "--bg_radius", "0",
+                "--density_thresh", "10", "--use_normalized_palette", "--seed", "0"]
+EXTRACT_ARGS = PALETTE_ARGS + ["--extract_palette", "--extract_via_sweep"]
+# 300 of 8000 iterations: three epochs, one per phase of the schedule
+PALETTE_TRAIN_ARGS = PALETTE_ARGS + ["--use_initialization_from_rgbxy", "--dt_gamma", "0",
+                                     "--datatype", "blender", "--iters", "300",
+                                     "--smooth_loss_start_epoch", "1",
+                                     "--max_freeze_palette_epoch", "2"]
+PALETTE_PSNR_FLOOR = 21.0  # validation view 0 after 300 + 300 steps: set from the first
+#                            card run (23.153 dB) with ~2 dB margin
 ALPHA_PSNR_FLOOR = 24.0    # sweep opacity of test view 0 vs its ground truth alpha: set
 #                            from the first card run (25.308 dB) with ~1.3 dB margin
+SERVE_COLOR_PSNR_FLOOR = 23.0  # sweep frame of test view 0 vs its image, on the checkpoint
+#                                the palette phase trains: first card run 25.275 dB
 SWEEP_VS_BAKED_FLOOR = 26.0  # sweep vs render_baked, the threshold of tests/test_sweep.py
 BAKE_RTOL, BAKE_ATOL = 1e-4, 1e-5  # card vs CPU bake: f32 sums in another order
 SWEEP_CARD_PSNR = 40.0     # card vs CPU sweep frame, bf16 shade (rounding flips)
@@ -393,8 +418,8 @@ def phase_main_path(torch, dev):
     valid_ds = NeRFDataset(cfg, type="val")
     log(f"loaded {len(train_ds)} train + {len(valid_ds)} val views "
         f"({train_ds.H}x{train_ds.W}) in {time.perf_counter() - t0:.1f} s")
-    trainer = Trainer("ngp", cfg, spec, workspace=WORKSPACE, use_checkpoint="scratch",
-                      eval_interval=10_000, device=dev)
+    trainer = Trainer("ngp", cfg, spec, workspace=os.path.join(ROOT, NERF_WS),
+                      use_checkpoint="scratch", eval_interval=10_000, device=dev)
     if spec.grid.total_params != TABLE_ROWS:
         raise AssertionError(f"hash table has {spec.grid.total_params} rows")
 
@@ -443,8 +468,7 @@ def phase_main_path(torch, dev):
         raise AssertionError(f"render shape {out['image'].shape}")
     if not val_psnr > PSNR_FLOOR:
         raise AssertionError(f"validation PSNR {val_psnr:.3f} dB <= floor {PSNR_FLOOR}")
-    path_times = phase_path_stream(torch, trainer, train_ds)
-    return launches, write_serve_checkpoint(torch, trainer), path_times
+    return launches, phase_path_stream(torch, trainer, train_ds), train_ds
 
 
 def phase_path_stream(torch, trainer, train_ds):
@@ -485,25 +509,6 @@ def phase_path_stream(torch, trainer, train_ds):
     return {f"path_{k}": v for k, v in t.items()}
 
 
-def write_serve_checkpoint(torch, trainer) -> str:
-    """The checkpoint the serve main path runs on, in the JAX package's pickle layout.
-    The palette trainer is not ported, so it is built at the widths of the committed
-    proc_toys palette checkpoint (P = 5, three 16-level 2^19-row tables) from the train
-    phase's EMA NeRF (encoder, sigma_net, color_net) and occupancy grid, under seeded
-    random palette heads. The script thus needs no file beyond the code and the scene."""
-    from palettenerf_torch.models.palette import PaletteSpec
-    from palettenerf_torch.train.checkpoint import save_reference_checkpoint
-
-    spec = PaletteSpec.build(bound=1.0, num_basis=SERVE_P)
-    params = _random_palette_params(torch, spec, torch.Generator().manual_seed(4),
-                                    lively=False)
-    params.update({k: v for k, v in trainer.eval_params().items()
-                   if k in ("encoder", "sigma_net", "color_net")})
-    path = os.path.join(WORKSPACE, "serve", f"palette_ep{trainer.epoch:04d}.ckpt")
-    return save_reference_checkpoint(path, params, trainer.epoch, trainer.global_step,
-                                     grid_state=trainer.grid_state._asdict())
-
-
 def _random_palette_params(torch, spec, gen, lively: bool = True):
     """A random palette field (CPU): MLPs at torch.nn.Linear's init, the density and
     omega heads scaled by 8 and the first P colors of PALETTE. ``lively`` tables are
@@ -542,6 +547,200 @@ def _to(torch, params, dev):
 def _psnr(torch, a, b) -> float:
     mse = float(((a.float().cpu() - b.float().cpu()) ** 2).mean())
     return -10.0 * math.log10(mse + 1e-12)
+
+
+def phase_palette_reference(torch, dev):
+    """One small -O palette train step (smooth loss on, basis colors unfrozen, hist
+    weights present) on the card and on the CPU, from the same weights and draws: the
+    loss and every gradient must agree; ``encoder`` and ``sigma_net`` get none."""
+    from palettenerf_torch.config import Config
+    from palettenerf_torch.models.mlp import param_leaves
+    from palettenerf_torch.models.palette import FROZEN, PaletteSpec
+    from palettenerf_torch.train.palette_trainer import PaletteTrainer
+
+    kw = dict(bound=1.0, log2_hashmap_size=14, grid_levels=8)
+    cfg = Config(O=True, fp16=True, grid_size=32, num_rays=512, max_steps=256,
+                 train_samples_per_ray=32, iters=100, use_initialization_from_rgbxy=True, **kw)
+    spec = PaletteSpec.build(num_basis=4, fp16=True, **kw)
+    gen = torch.Generator().manual_seed(6)
+    params = _random_palette_params(torch, spec, gen)
+    params["basis_color"][0, 0] = 1.0   # a color on the clamp's bound, as extraction gives
+    params["basis_color_origin"] = params["basis_color"] - 0.01
+    hist = torch.rand((32, 32, 32, 4), generator=gen)
+    params["hist_weights"] = hist / hist.sum(-1, keepdim=True)
+    n, S = cfg.num_rays, cfg.train_samples_per_ray
+    o = torch.randn((n, 3), generator=gen)
+    o = o / o.norm(dim=-1, keepdim=True) * 2.0
+    d = -o + 0.5 * torch.randn((n, 3), generator=gen)
+    d = d / d.norm(dim=-1, keepdim=True)
+    img, bg, noise, jit_u = (torch.rand(shape, generator=gen)
+                             for shape in ((n, 4), (n, 3), (n,), (n * S, 3)))
+    results = []
+    for device in ("cpu", dev):
+        tr = PaletteTrainer("ref", cfg, spec, params=params,
+                            workspace=os.path.join(WORKSPACE, "palette_reference"),
+                            use_checkpoint="scratch", mute=True, device=device)
+        tr.grid_state = tr.grid_state._replace(
+            bitfield=torch.full_like(tr.grid_state.bitfield, 255))
+        tr.freeze_basis_color, tr.require_smooth_loss = False, True
+        tr.lambda_palette = cfg.lambda_palette
+        before = read_counts()["scatter_add"]
+        loss, _ = tr.train_step(*(t.to(tr.device) for t in (o, d, img)), bg=bg.to(tr.device),
+                                noise=noise.to(tr.device), jit_u=jit_u.to(tr.device))
+        launched = read_counts()["scatter_add"] - before
+        fixed = param_leaves({k: tr.params[k] for k in ("encoder", "sigma_net")})
+        if any(p.grad is not None and bool((p.grad != 0).any()) for p in fixed):
+            raise AssertionError("palette reference: encoder / sigma_net got a gradient")
+        mlps = param_leaves(tr.params, skip=("encoder", "sigma_net", "encoder_palette",
+                                             "encoder_clip") + FROZEN)
+        results.append((float(loss), tr.params["encoder_palette"].grad.cpu(),
+                        [p.grad.cpu() for p in mlps], launched))
+    (loss_c, tab_c, mlp_c, n_c), (loss_g, tab_g, mlp_g, n_g) = results
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
+
+    # tolerances as in the train reference: 1e-2 of the largest entry for a table (one
+    # bf16 ulp of an update), 1e-4 for the MLPs, the biases and the basis colors
+    rel_tab = rel(tab_c, tab_g)
+    rel_mlp = max(rel(a, b) for a, b in zip(mlp_c, mlp_g))
+    log(f"palette reference: loss cpu {loss_c:.7f} gpu {loss_g:.7f}; max relative gradient "
+        f"difference: encoder_palette {rel_tab:.3e}, MLPs and basis colors {rel_mlp:.3e}; "
+        f"scatter_add launches cpu {n_c} gpu {n_g}")
+    if abs(loss_c - loss_g) > 1e-5 * abs(loss_c) or rel_tab > 1e-2 or rel_mlp > 1e-4:
+        raise AssertionError("the -O palette train step on the card disagrees with the CPU")
+    if (n_c, n_g) != (0, 2):
+        raise AssertionError(f"scatter_add launches in one palette step with the smooth "
+                             f"loss: cpu {n_c}, card {n_g} (0 and 2 expected)")
+
+
+def phase_palette(torch, dev, train_ds):
+    """The palette stages at full width through ``main_palette.main``: extraction, then
+    300 training steps, on the stage-1 workspace the train main path wrote. Returns (the
+    launch counts of the training run, the palette workspace)."""
+    import shutil
+
+    import numpy as np
+
+    from palettenerf_torch import main_palette
+    from palettenerf_torch.config import Config
+    from palettenerf_torch.data.provider import NeRFDataset
+    from palettenerf_torch.extraction.histogram import compute_rgb_histogram
+    from palettenerf_torch.extraction.hull import outside_hull_rmse
+    from palettenerf_torch.models.mlp import param_leaves
+    from palettenerf_torch.ops import scatter
+    from palettenerf_torch.train import checkpoint as ckpt_lib
+    from palettenerf_torch.train.metrics import psnr
+
+    shutil.rmtree(os.path.join(ROOT, "results_palette", "chip_smoke"), ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # -------------------------------------------------------------- extraction
+    t0 = time.perf_counter()
+    extractor = main_palette.main(EXTRACT_ARGS, device=dev)
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    peak_extract = torch.cuda.max_memory_allocated() / 2 ** 30
+    pal_ws = extractor.workspace
+    stats = extractor.extract_stats
+    del extractor
+    palette = np.load(os.path.join(pal_ws, "palette.npz"))["palette"]
+    hist = np.load(os.path.join(pal_ws, "hist_weights.npz"))["hist_weights"]
+    P = palette.shape[0]
+    # the ground-truth foreground colors (alpha > 0.5), normalized as extraction does,
+    # as a 2^5-bin histogram: how far they lie outside the palette's hull
+    rgba = train_ds.images.reshape(-1, 4)
+    fg = rgba[rgba[:, 3] > 0.5]
+    fg = fg[:, :3] * fg[:, 3:] + (1.0 - fg[:, 3:]) + np.float32(0.05)
+    fg /= np.linalg.norm(fg, axis=-1, keepdims=True)
+    counts, centers = compute_rgb_histogram(fg, np.ones(len(fg), np.float32), 5)
+    rmse = outside_hull_rmse(palette, centers[counts > 0].astype(np.float64), counts[counts > 0])
+    log(f"palette extraction: {extract_s:.1f} s, P = {P}, {stats['foreground_samples']} "
+        f"foreground samples, {stats['fallback_views']} views through the per-ray path, "
+        f"outside_hull_rmse of the ground-truth foreground colors {rmse:.5f}, peak memory "
+        f"{peak_extract:.2f} GiB; palette " + np.array2string(palette, precision=4).replace("\n", ""))
+    if not 4 <= P <= 8 or palette.min() < 0.0 or palette.max() > 1.0:
+        raise AssertionError(f"extracted palette: {P} colors in [{palette.min()}, {palette.max()}]")
+    # non-negative up to the rounding of the barycentric solve (f64)
+    if hist.shape != (32, 32, 32, P) or hist.min() < -1e-12 \
+            or np.abs(hist.sum(-1) - 1.0).max() > 1e-6:
+        raise AssertionError(f"hist_weights {hist.shape}: min {hist.min()}, bin sums within "
+                             f"{np.abs(hist.sum(-1) - 1.0).max()} of 1")
+    if not stats["foreground_samples"] > 1_000_000 or not rmse < 5.0 / 255.0 * 2:
+        raise AssertionError(f"extraction: {stats['foreground_samples']} foreground samples, "
+                             f"outside-hull rmse {rmse}")
+
+    # -------------------------------------------------------------- main path
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    trainer = main_palette.main(PALETTE_TRAIN_ARGS, device=dev)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = read_counts()
+    # -------------------------------------------------------------- checks
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    scatter.check_refused()
+    losses, secs = trainer.stats["loss"], trainer.stats["epoch_seconds"]
+    n_views = len(train_ds)
+    log(f"palette main path: {trainer.global_step} steps in {total_s:.1f} s with data "
+        f"loading, checkpoints and the test split's evaluation and renders; epoch losses "
+        f"{['%.5f' % v for v in losses]}; steps/s per epoch (colors frozen / + smooth loss / "
+        f"+ colors unfrozen) {['%.2f' % (n_views / t) for t in secs]}; peak memory "
+        f"{peak_gb:.2f} GiB; launches {launches}")
+    if trainer.global_step != 300 or len(losses) != 3:
+        raise AssertionError(f"{trainer.global_step} steps in {len(losses)} epochs")
+    if not all(math.isfinite(v) for v in losses) or not losses[2] < losses[0]:
+        raise AssertionError(f"palette loss did not fall: {losses}")
+    if launches["scatter_add"] < 300:
+        raise AssertionError(f"scatter_add launched {launches['scatter_add']} times on the "
+                             f"palette path (500 expected: 100 + 200 + 200)")
+    stage1 = ckpt_lib.load_checkpoint(ckpt_lib.latest_checkpoint(
+        os.path.join(ROOT, NERF_WS, "checkpoints"), "ngp"))
+    for got, want in zip(
+            param_leaves({k: trainer.params[k] for k in ("encoder", "sigma_net")}) +
+            [trainer.grid_state.bitfield],
+            param_leaves({k: stage1["params"][k] for k in ("encoder", "sigma_net")}) +
+            [stage1["grid_state"]["bitfield"]]):
+        if not torch.equal(got.detach().cpu(), want):
+            raise AssertionError("palette training moved encoder, sigma_net or the bitfield")
+    ckpts = os.path.join(trainer.workspace, "checkpoints")
+    colors = {ep: ckpt_lib.load_checkpoint(os.path.join(ckpts, f"palette_ep{ep:04d}.ckpt"))
+              ["params"] for ep in (2, 3)}
+    extracted = torch.from_numpy(palette.astype(np.float32))
+    if not torch.equal(colors[2]["basis_color"], extracted):
+        raise AssertionError("basis_color moved while frozen (epochs 1-2)")
+    if torch.equal(colors[3]["basis_color"], extracted):
+        raise AssertionError("basis_color did not move after the unfreeze (epoch 3)")
+    if not torch.equal(colors[3]["basis_color_origin"], extracted) or not torch.equal(
+            colors[3]["hist_weights"], torch.from_numpy(hist.astype(np.float32))):
+        raise AssertionError("basis_color_origin or hist_weights moved")
+    moved = float((colors[3]["basis_color"] - extracted).abs().max())
+
+    valid_ds = NeRFDataset(Config(path=SCENE, bound=1.0, scale=0.8), type="val")
+    data = valid_ds.collate(0)
+    trainer.eval_step_full(data)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = trainer.eval_step_full(data)
+    eval_s = time.perf_counter() - t0
+    img = data["images"]
+    gt = img[..., :3] * img[..., 3:] + (1.0 - img[..., 3:])
+    val_psnr = psnr(out["image"], gt)
+    acc_err = float(np.abs(out["basis_acc"].sum(-1) - out["weights_sum"]).max())
+    log(f"palette main path: eval {eval_s:.3f} s/frame ({data['W']}x{data['H']}), val PSNR "
+        f"{val_psnr:.3f} dB, max |sum of basis_acc - weights_sum| {acc_err:.2e}, "
+        f"basis_color moved by up to {moved:.4f} in epoch 3")
+    if not all(np.isfinite(v).all() for v in out.values()):
+        raise AssertionError("non-finite palette render")
+    if out["basis_rgb"].shape != (data["H"], data["W"], 3 * P) or acc_err > 1e-4:
+        raise AssertionError(f"basis maps {out['basis_rgb'].shape}, basis_acc sums off "
+                             f"weights_sum by {acc_err}")
+    if not val_psnr > PALETTE_PSNR_FLOOR:
+        raise AssertionError(f"palette validation PSNR {val_psnr:.3f} dB <= floor "
+                             f"{PALETTE_PSNR_FLOOR}")
+    return launches, trainer.workspace
 
 
 def phase_serve_reference(torch, dev):
@@ -595,7 +794,7 @@ def phase_serve_reference(torch, dev):
 
 
 def phase_serve(torch, dev, ckpt):
-    """The serving main path at full width, on the checkpoint of the train phase."""
+    """The serving main path at full width, on the workspace the palette phase trained."""
     from palettenerf_torch import main_serve
     from palettenerf_torch.config import Config
     from palettenerf_torch.data.provider import NeRFDataset
@@ -605,8 +804,7 @@ def phase_serve(torch, dev, ckpt):
                                                  mask_with_bitfield, render_baked)
     from palettenerf_torch.render.palette_renderer import make_region_edit, region_edit_delta_hsv
     from palettenerf_torch.render.sweep import build_sweep_volume, render_sweep
-    from palettenerf_torch.train.checkpoint import (load_reference_checkpoint,
-                                                    palette_params_from_jax)
+    from palettenerf_torch.train.checkpoint import load_palette_checkpoint
 
     argv = [ckpt, "--data", SCENE, "--bench"]
     torch.cuda.empty_cache()
@@ -629,19 +827,19 @@ def phase_serve(torch, dev, ckpt):
         raise AssertionError("the checkpoint load imported ml_dtypes")
     torch.cuda.empty_cache()
     # the CLI's bake again, kept in f32 for the golden per-ray renderer
-    payload = load_reference_checkpoint(ckpt)
-    params = palette_params_from_jax(payload["params"], device=dev)
-    spec = PaletteSpec.build(bound=1.0, num_basis=params["basis_color"].shape[0])
+    params, grid_state = load_palette_checkpoint(main_serve.find_checkpoint(ckpt), device=dev)
+    P = params["basis_color"].shape[0]
+    spec = PaletteSpec.build(bound=1.0, num_basis=P)
     baked = mask_with_bitfield(bake_palette(params, spec, resolution=256, vd_bands=2),
-                               payload["grid_state"])
+                               grid_state)
     sv = build_sweep_volume(baked, sigma_thresh=1e-3)
     C = sv.vols[0].shape[2]
-    if sv.vols[0].shape != (256, 256, C, 256) or C != 2 + 4 * SERVE_P + 3 * 4:
+    if sv.vols[0].shape != (256, 256, C, 256) or C != 2 + 4 * P + 3 * 4:
         raise AssertionError(f"sweep volume {tuple(sv.vols[0].shape)}")
     palette = params["basis_color"].clamp(0, 1)
     new = palette.cpu().clone()
     new[0] = torch.tensor([0.2, 0.9, 0.2])  # --edit_basis 0 with the default --edit_rgb
-    edit = make_region_edit(SERVE_P, clip_dim=1, std_xyz=0.3)._replace(
+    edit = make_region_edit(P, clip_dim=1, std_xyz=0.3)._replace(
         delta_hsv=region_edit_delta_hsv(palette.cpu().numpy(), new.numpy()).numpy())
 
     ds = NeRFDataset(Config(path=SCENE, bound=1.0, scale=0.8), type="test")
@@ -650,8 +848,9 @@ def phase_serve(torch, dev, ckpt):
     out = render_sweep(sv, pose, ds.intrinsics, H, W, u_res=400, basis_color=palette)
     img = out["image"]
     finite = all(bool(torch.isfinite(v).all()) for v in out.values())
-    alpha_psnr = _psnr(torch, out["weights_sum"].reshape(H, W),
-                       torch.from_numpy(ds.images[0][..., 3]))
+    rgba = torch.from_numpy(ds.images[0])
+    alpha_psnr = _psnr(torch, out["weights_sum"].reshape(H, W), rgba[..., 3])
+    color_psnr = _psnr(torch, img, rgba[..., :3] * rgba[..., 3:] + (1.0 - rgba[..., 3:]))
     # pixels that saw only background keep T = 1: the JAX package's per-block test
     # max(T) > t_thresh (dropped by the port) could not skip any block of such a frame
     ws_min = float(out["weights_sum"].min())
@@ -666,13 +865,14 @@ def phase_serve(torch, dev, ckpt):
     edited = render_sweep(sv, pose, ds.intrinsics, H, W, u_res=400, basis_color=palette,
                           edit=edit)["image"]
     neutral = render_sweep(sv, pose, ds.intrinsics, H, W, u_res=400, basis_color=palette,
-                           edit=make_region_edit(SERVE_P, clip_dim=1))["image"]
+                           edit=make_region_edit(P, clip_dim=1))["image"]
     moved = float((edited - img).abs().max())
     neutral_moved = float((neutral - img).abs().max())
     log(f"serve main path: bake {bake_s:.2f} s (edited run {bake_edit:.2f} s), "
         f"{fps:.2f} fps plain, {fps_edit:.2f} fps edited ({W}x{H}, u_res 400, 60 "
         f"frames), peak memory {peak_plain:.2f} GiB plain / {peak_edit:.2f} GiB edited; "
-        f"test view 0: opacity vs ground-truth alpha PSNR {alpha_psnr:.3f} dB, sweep vs "
+        f"test view 0: vs its image {color_psnr:.3f} dB, opacity vs ground-truth alpha PSNR "
+        f"{alpha_psnr:.3f} dB, sweep vs "
         f"render_baked (512 samples) {psnr_baked:.3f} dB; edit moves {moved:.3f}, neutral "
         f"edit {neutral_moved:.3g}; min weights_sum {ws_min:.3g}; launches {launches}")
     if img.shape != (H, W, 3) or (H, W) != (800, 800) or not finite:
@@ -680,6 +880,9 @@ def phase_serve(torch, dev, ckpt):
     if not alpha_psnr > ALPHA_PSNR_FLOOR:
         raise AssertionError(f"test view 0 opacity PSNR {alpha_psnr:.3f} dB <= floor "
                              f"{ALPHA_PSNR_FLOOR}")
+    if not color_psnr > SERVE_COLOR_PSNR_FLOOR:
+        raise AssertionError(f"test view 0 vs its image {color_psnr:.3f} dB <= floor "
+                             f"{SERVE_COLOR_PSNR_FLOOR}")
     if not psnr_baked > SWEEP_VS_BAKED_FLOOR:
         raise AssertionError(f"sweep vs render_baked {psnr_baked:.3f} dB <= "
                              f"{SWEEP_VS_BAKED_FLOOR}")
@@ -701,6 +904,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    os.chdir(ROOT)
     t_start = time.perf_counter()
 
     smi = nvidia_smi()
@@ -728,14 +932,18 @@ def main() -> int:
     kernels = phase_kernels(torch, dev)
     wg_entry = phase_window_gather(torch, dev)
     phase_reference(torch, dev)
-    train_launches, serve_ckpt, path_times = phase_main_path(torch, dev)
+    train_launches, path_times, train_ds = phase_main_path(torch, dev)
+    phase_palette_reference(torch, dev)
+    palette_launches, palette_ws = phase_palette(torch, dev, train_ds)
+    del train_ds
     for k in kernels:
-        k["path"] = "train"
+        k["path"] = "train, palette"
         k["launches"] = train_launches[k["name"]]
+        k["palette_launches"] = palette_launches[k["name"]]
         k.update(path_times)
     kernels.append(wg_entry)
     phase_serve_reference(torch, dev)
-    phase_serve(torch, dev, serve_ckpt)
+    phase_serve(torch, dev, palette_ws)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

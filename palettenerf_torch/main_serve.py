@@ -8,8 +8,8 @@ Same flags and defaults as the JAX package's ``main_serve.py``: the field is bak
 (``--resolution``^3, ``--vd_bands`` SH bands of view-dependent color, masked with the
 checkpoint's occupancy bitfield), then every frame — including recolors, RegionEdit
 masks and the offsets dials — is rendered from the bake by ``render/sweep.py``. The
-checkpoint is a JAX-package pickle (``train/checkpoint.py:load_reference_checkpoint``
-reads it without JAX or ``ml_dtypes``). ``--out *.png`` writes the first frame; video
+checkpoint is the port's own (a workspace of ``main_palette``) or a JAX-package pickle
+(``train/checkpoint.py:load_palette_checkpoint`` reads it without JAX or ``ml_dtypes``). ``--out *.png`` writes the first frame; video
 output is not ported (it needs ``cv2``). Runs on CUDA; ``main(argv, device="cpu")`` runs
 on the CPU.
 """
@@ -144,7 +144,7 @@ def main(argv=None, device="cuda") -> ServeResult:
     from .render.baking import bake_palette, mask_with_bitfield
     from .render.palette_renderer import make_region_edit, region_edit_delta_hsv
     from .render.sweep import build_clip_masks, build_sweep_volume, render_sweep
-    from .train.checkpoint import load_reference_checkpoint, palette_params_from_jax
+    from .train.checkpoint import load_palette_checkpoint
 
     opt = build_parser().parse_args(argv)
     if opt.out is not None and not opt.out.endswith(".png"):
@@ -153,8 +153,7 @@ def main(argv=None, device="cuda") -> ServeResult:
     dev = resolve_device(device)
 
     ckpt = find_checkpoint(opt.workspace)
-    payload = load_reference_checkpoint(ckpt)
-    params = palette_params_from_jax(payload["params"], device=dev)
+    params, gs = load_palette_checkpoint(ckpt, device=dev)
     P = opt.num_basis or params["basis_color"].shape[0]
     spec = PaletteSpec.build(bound=opt.bound, num_basis=P, grid_levels=opt.grid_levels,
                              grid_level_dim=opt.grid_level_dim,
@@ -167,7 +166,6 @@ def main(argv=None, device="cuda") -> ServeResult:
     baked = bake_palette(params, spec, resolution=opt.resolution, vd_bands=opt.vd_bands)
     # mask with the training bitfield (the cell set the marcher sampled): the field is
     # unconstrained fog elsewhere, which speckles the background and defeats slice skips
-    gs = payload.get("grid_state")
     if gs is not None and gs.get("bitfield") is not None:
         baked = mask_with_bitfield(baked, gs)
         print("[serve] bitfield-masked bake", flush=True)

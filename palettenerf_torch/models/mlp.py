@@ -48,3 +48,15 @@ def apply_mlp(layers: Sequence, x: torch.Tensor,
     if final_activation is not None:
         h = final_activation(h)
     return h
+
+
+def param_leaves(params: dict, skip=()) -> List[torch.Tensor]:
+    """Every tensor of a parameter dict in a fixed order (insertion order of the keys,
+    layers in order, a biased layer as w then b), without the keys in ``skip``."""
+    out = []
+    for k, v in params.items():
+        if k in skip:
+            continue
+        for layer in (v if isinstance(v, list) else [v]):
+            out.extend(layer.values() if isinstance(layer, dict) else [layer])
+    return out

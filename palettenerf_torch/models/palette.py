@@ -1,9 +1,9 @@
-"""PaletteNeRF network (stage 3), eval forward, as functions on a parameter dict.
+"""PaletteNeRF network (stage 3) as functions on a parameter dict.
 
-Port of ``palettenerf_tpu/models/palette.py:46-245`` (``PaletteSpec``,
-``palette_density``, ``palette_color``, ``palette_view_dep``, ``palette_forward``) for
-inference: the serving bake evaluates the trained field through these. Three hash
-encoders (``encoder`` for sigma, ``encoder_palette``, ``encoder_clip``) on the port's
+Port of ``palettenerf_tpu/models/palette.py`` (``PaletteSpec``, ``init_palette``,
+``initialize_palette``, ``palette_density``, ``palette_color``, ``palette_view_dep``,
+``palette_forward``, ``get_palette_weight_with_hist``): the palette trainer and the
+serving bake evaluate the field through these. Three hash encoders (``encoder`` for sigma, ``encoder_palette``, ``encoder_clip``) on the port's
 ``hashgrid_encode_fast_bounded``; bias-free MLPs except ``offsets_radiance_net``
 (Linear 15 -> 3P+1 with a bias); ``basis_net`` with ELU activations; ``omega`` =
 softplus + 0.05, normalized to sum 1.
@@ -11,32 +11,39 @@ softplus + 0.05, normalized to sum 1.
 Parameters (``train/checkpoint.py:palette_params_from_jax``): ``encoder``,
 ``encoder_palette`` [T, C] tables, ``encoder_clip`` + ``clip_net`` with ``pred_clip``,
 the MLP layer lists ``sigma_net``, ``color_net``, ``diff_net``, ``basis_net``,
-``offsets_radiance_net``, ``omega_net``, and ``basis_color`` [P, 3].
+``offsets_radiance_net``, ``omega_net``, the trainable ``basis_color`` [P, 3], its frozen
+copy ``basis_color_origin`` and, after ``initialize_palette``, the frozen
+``hist_weights`` [32, 32, 32, P].
+
+Gradient stops as in the JAX package: the geo feature is detached before every palette
+head and ``diffuse`` before ``basis_net``; the palette renderer detaches sigma.
 
 Not ported yet: the training-only encoder options (``stochastic_trilerp``,
-``grad_levels``, ``fast_grad``), the background net (``bg_radius > 0``), and
-``init_palette`` / ``initialize_palette`` (they come with the palette trainer).
+``grad_levels``, ``fast_grad``), the background net (``bg_radius > 0``) and
+``color_space="linear"``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..ops.activation import trunc_exp
-from ..ops.hashgrid import HashGridSpec
+from ..ops.hashgrid import HashGridSpec, init_hashgrid
 from ..ops.hashgrid_fast import hashgrid_encode_fast_bounded
 from ..ops.sh import sh_encode
-from .mlp import apply_mlp
+from .mlp import apply_mlp, init_mlp
 
 
 @dataclass(frozen=True)
 class PaletteSpec:
-    """Static model hyperparameters (the inference fields of the JAX package's spec;
-    the training-only encoder options and the background net raise when set)."""
+    """Static model hyperparameters (the JAX package's spec without the background
+    net; the training-only encoder options, ``bg_radius > 0`` and the linear color
+    space raise when set)."""
 
     bound: float = 1.0
     num_basis: int = 4
@@ -49,6 +56,10 @@ class PaletteSpec:
     hidden_dim_color: int = 64
     sh_degree: int = 4
     bg_radius: float = -1.0
+    color_space: str = "srgb"
+    smooth_sigma_xyz: float = 0.005
+    smooth_sigma_color: float = 0.2
+    smooth_sigma_clip: float = 0.0
     grid: HashGridSpec = None  # type: ignore[assignment]
 
     fp16: bool = False
@@ -59,6 +70,8 @@ class PaletteSpec:
     def __post_init__(self):
         if self.bg_radius > 0:
             raise NotImplementedError("the background net (bg_radius > 0) is not ported yet")
+        if self.color_space != "srgb":
+            raise NotImplementedError(f"color_space={self.color_space} is not ported yet")
         if self.fast_grad or self.stochastic_trilerp or self.grad_levels:
             raise NotImplementedError(
                 "the training-only encoder options (fast_grad, stochastic_trilerp, "
@@ -66,16 +79,17 @@ class PaletteSpec:
 
     @classmethod
     def build(cls, bound: float = 1.0, bg_radius: float = -1.0, num_basis: int = 4,
-              pred_clip: bool = False, clip_dim: int = 16, log2_hashmap_size: int = 19,
-              grid_levels: int = 16, grid_level_dim: int = 2, gridtype: str = "hash",
-              **kw) -> "PaletteSpec":
+              pred_clip: bool = False, clip_dim: int = 16, color_space: str = "srgb",
+              log2_hashmap_size: int = 19, grid_levels: int = 16, grid_level_dim: int = 2,
+              gridtype: str = "hash", **kw) -> "PaletteSpec":
         grid = HashGridSpec.build(
             desired_resolution=2048 * bound, num_levels=grid_levels,
             level_dim=grid_level_dim, log2_hashmap_size=log2_hashmap_size,
             gridtype=gridtype,
         )
         return cls(bound=bound, bg_radius=bg_radius, num_basis=num_basis,
-                   pred_clip=pred_clip, clip_dim=clip_dim, grid=grid, **kw)
+                   pred_clip=pred_clip, clip_dim=clip_dim, color_space=color_space,
+                   grid=grid, **kw)
 
     @property
     def scatter_dtype(self) -> Optional[torch.dtype]:
@@ -87,6 +101,55 @@ class PaletteSpec:
 
 
 Params = Dict[str, object]
+
+# leaves of the parameter dict that no optimizer step ever moves
+FROZEN = ("basis_color_origin", "hist_weights")
+
+
+def _dims(in_dim, hidden, out_dim, n) -> List[int]:
+    return [in_dim] + [hidden] * (n - 1) + [out_dim]
+
+
+def init_palette(spec: PaletteSpec, generator: torch.Generator, device="cpu") -> Params:
+    """A fresh parameter dict with the shapes and distributions of the JAX package's
+    ``init_palette`` (its draws come from ``generator``, as ``init_nerf``'s do)."""
+    P, n, g = spec.num_basis, spec.grid.output_dim, spec.geo_feat_dim
+    mlp = lambda dims, **kw: init_mlp(dims, generator, device, **kw)  # noqa: E731
+    params = {
+        "encoder": init_hashgrid(spec.grid, generator, device),
+        "encoder_palette": init_hashgrid(spec.grid, generator, device),
+        "encoder_clip": init_hashgrid(spec.grid, generator, device),
+        "sigma_net": mlp(_dims(n, spec.hidden_dim, 1 + g, spec.num_layers)),
+        "color_net": mlp(_dims(spec.sh_dim + g, spec.hidden_dim_color, 3,
+                               spec.num_layers_color)),
+        "diff_net": mlp(_dims(g, spec.hidden_dim_color, 3, spec.num_layers_color)),
+        "basis_net": mlp(_dims(n + 3, spec.hidden_dim, g, spec.num_layers)),
+        "offsets_radiance_net": mlp([g, P * 3 + 1], bias=True),
+        "omega_net": mlp([g, P]),
+        # palette state; re-initialized by initialize_palette (renderer.py:248-268)
+        "basis_color": torch.full((P, 3), 0.5, device=device),
+        "basis_color_origin": torch.full((P, 3), 0.5, device=device),
+    }
+    if spec.pred_clip:
+        params["clip_net"] = mlp(_dims(n, spec.hidden_dim, spec.clip_dim, spec.num_layers))
+    return params
+
+
+def initialize_palette(params: Params, spec: PaletteSpec, color_list=None,
+                       hist_weights=None) -> Params:
+    """Set the basis colors (and their frozen origin) and the optional hist-weight
+    volume (palette/renderer.py:248-268). Returns an updated shallow copy; the new
+    leaves are on the device of ``basis_color`` and need no gradient yet."""
+    params = dict(params)
+    dev = params["basis_color"].device
+    if color_list is not None:
+        bc = torch.as_tensor(np.asarray(color_list, np.float32), device=dev)
+        params["basis_color"] = bc
+        params["basis_color_origin"] = bc.clone()
+    if hist_weights is not None:
+        params["hist_weights"] = torch.as_tensor(np.asarray(hist_weights, np.float32),
+                                                 device=dev)
+    return params
 
 
 def _encode(params: Params, name: str, spec: PaletteSpec, x: torch.Tensor) -> torch.Tensor:
@@ -147,3 +210,24 @@ def palette_forward(params: Params, spec: PaletteSpec, x: torch.Tensor, d: torch
     omega, offsets_radiance, view_dep, diffuse = palette_color(params, spec, x, d,
                                                                dens["geo_feat"])
     return sigma, clip_feat, omega, offsets_radiance, view_dep, diffuse
+
+
+def get_palette_weight_with_hist(rgb: torch.Tensor, hist_weights: torch.Tensor) -> torch.Tensor:
+    """Trilinear lookup of the extraction's blending weights at colors.
+
+    hist_weights [32, 32, 32, P] indexed by (r, g, b) * 31 (``grid_sample`` with
+    align_corners, palette/utils.py:117-124); rgb [..., 3] in [0, 1] -> [..., P].
+    """
+    shape = rgb.shape[:-1]
+    g = rgb.reshape(-1, 3).clamp(0.0, 1.0) * 31.0
+    i0 = torch.floor(g).to(torch.int64).clamp(0, 30)
+    f = g - i0
+    out = 0.0
+    for corner in range(8):
+        bits = [(corner >> k) & 1 for k in range(3)]
+        idx = [(i0[:, k] + bits[k]).clamp(0, 31) for k in range(3)]
+        w = 1.0
+        for k in range(3):
+            w = w * (f[:, k] if bits[k] else 1.0 - f[:, k])
+        out = out + hist_weights[idx[0], idx[1], idx[2]] * w[:, None]
+    return out.reshape(*shape, hist_weights.shape[-1])

@@ -21,9 +21,14 @@ def composite_weights(sigmas, dts, mask, t_thresh: float):
     return w, w.sum(-1), t_enter
 
 
+def composite_channels(weights, values):
+    """weights [N,S] x values [N,S,C] -> [N,C]."""
+    return torch.einsum("ns,nsc->nc", weights, values)
+
+
 def composite_rays(sigmas, rgbs, dts, t_cum, mask, t_thresh: float):
     """Returns (weights_sum [N], depth [N], image [N,3]); depth = sum_j w_j * t_cum_j."""
     w, ws, _ = composite_weights(sigmas, dts, mask, t_thresh)
     depth = (w * t_cum).sum(-1)
-    image = torch.einsum("ns,nsc->nc", w, rgbs)
+    image = composite_channels(w, rgbs)
     return ws, depth, image

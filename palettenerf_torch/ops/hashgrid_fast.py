@@ -20,6 +20,7 @@ the JAX version are not needed here.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -30,8 +31,10 @@ from .scatter import scatter_add
 _U32 = 0xFFFFFFFF
 
 
-def _level_constants(spec: HashGridSpec, device):
-    """Per-level [L] tensors: scale (f32), table size, offset, hashed?, strides [L, D]."""
+@functools.lru_cache(maxsize=None)
+def _level_constants(spec: HashGridSpec, device: torch.device):
+    """Per-level [L] tensors: scale (f32), table size, offset, hashed?, strides [L, D].
+    Made once per (spec, device): an upload per encode would stall the launch queue."""
     scales, sizes, offs, hashed, strides = [], [], [], [], []
     for lvl in range(spec.num_levels):
         size, st, h = spec.level_layout(lvl)
@@ -55,7 +58,7 @@ def corner_indices(spec: HashGridSpec, x: torch.Tensor):
     """
     D, L = spec.input_dim, spec.num_levels
     K = 2 ** D
-    scales, sizes, offs, hashed, strides = _level_constants(spec, x.device)
+    scales, sizes, offs, hashed, strides = _level_constants(spec, x.device)  # read-only
     pos = x[:, None, :] * scales[None, :, None] + (0.0 if spec.align_corners else 0.5)
     pg0f = torch.floor(pos)
     frac = pos - pg0f                                    # [M, L, D]

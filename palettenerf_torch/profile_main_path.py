@@ -2,13 +2,18 @@
 
 - train: one ``-O`` training epoch (100 steps with their grid refreshes) and one exact
   eval frame of ``data_proc/proc_toys`` at full width, after a warm-up epoch;
+- palette: one PaletteNeRF training epoch (100 steps, smooth loss on, basis colors
+  unfrozen: the graph of most of a training run) and one eval frame, resumed from the
+  palette workspace ``--palette_ws`` on the stage-1 workspace ``--nerf_ws``;
 - serve: one 800x800 sweep frame (u_res 400) of a palette checkpoint's 256^3 bake,
-  plain and with basis 0 recolored, after the serve CLI's own warm-up frames. The
-  default checkpoint is the one ``chip_smoke.py`` writes (full width, P = 5);
-  ``--serve_ckpt deploy/proc_toys`` serves the committed trained one.
+  plain and with basis 0 recolored, after the serve CLI's own warm-up frames;
+  ``--serve_ckpt deploy/proc_toys`` serves the committed trained checkpoint.
 
-    python -m palettenerf_torch.profile_main_path [--steps_warmup 100] [--only train|serve]
-        [--serve_ckpt PATH]
+The palette and serve parts default to the workspaces ``chip_smoke.py`` trains (full
+width), so run it first.
+
+    python -m palettenerf_torch.profile_main_path [--steps_warmup 100]
+        [--only train|palette|serve] [--serve_ckpt PATH] [--palette_ws DIR] [--nerf_ws DIR]
 
 Prints, for each window, the wall time, the summed device time of all kernels and its
 share of the wall time (busy share; one stream, so kernels do not overlap), the number
@@ -77,16 +82,47 @@ def profile_train(a):
     _profile(f"eval frame {data['W']}x{data['H']}", lambda: tr.eval_step_full(data))
 
 
+def profile_palette(a):
+    import numpy as np
+
+    from . import main_palette
+    from .data.palette_provider import PaletteDataset
+    from .models.palette import PaletteSpec
+    from .train.palette_trainer import PaletteTrainer
+
+    pal_dir = os.path.join(os.path.dirname(a.palette_ws),
+                           "normalized_" + os.path.basename(a.nerf_ws))
+    P = int(np.load(os.path.join(pal_dir, "palette.npz"))["palette"].shape[0])
+    argv = [ARGS[0], a.nerf_ws] + ARGS[1:] + ["--use_initialization_from_rgbxy",
+                                               "--dt_gamma", "0", "--num_basis", str(P)]
+    cfg = Config.from_args(main_palette.build_parser().parse_args(argv))
+    spec = PaletteSpec.build(bound=cfg.bound, num_basis=P, fp16=True)
+    tr = PaletteTrainer("palette", cfg, spec, workspace=a.palette_ws, use_checkpoint="latest",
+                        nerf_path=None, mute=True, device="cuda")
+    if tr.global_step == 0:
+        raise FileNotFoundError(f"no palette checkpoint under {a.palette_ws}")
+    tr.freeze_basis_color, tr.require_smooth_loss = False, True
+    tr.lambda_palette = cfg.lambda_palette
+    train_ds = PaletteDataset(cfg, type="train")
+    tr.train_one_epoch(train_ds)
+    _profile(f"palette train epoch ({len(train_ds)} steps, smooth loss, colors unfrozen, "
+             f"step {tr.global_step}+)", lambda: tr.train_one_epoch(train_ds))
+    data = PaletteDataset(cfg, type="val").collate(0)
+    tr.eval_step_full(data)
+    _profile(f"palette eval frame {data['W']}x{data['H']}", lambda: tr.eval_step_full(data))
+
+
 def profile_serve(a):
     from . import main_serve
     from .render.palette_renderer import make_region_edit, region_edit_delta_hsv
     from .render.sweep import render_sweep
-    from .train.checkpoint import load_reference_checkpoint, palette_params_from_jax
+    from .train.checkpoint import load_palette_checkpoint
 
     argv = [a.serve_ckpt, "--data", ARGS[0], "--bench", "--n_frames", "4"]
     sv = main_serve.main(argv, device="cuda").sv
-    tree = load_reference_checkpoint(main_serve.find_checkpoint(a.serve_ckpt))["params"]
-    palette = palette_params_from_jax(tree)["basis_color"].clamp(0, 1)
+    params, _ = load_palette_checkpoint(main_serve.find_checkpoint(a.serve_ckpt))
+    palette = params["basis_color"].clamp(0, 1)
+    del params
     new = palette.clone()
     new[0] = torch.tensor([0.2, 0.9, 0.2])
     edit = make_region_edit(palette.shape[0], clip_dim=1)._replace(
@@ -106,16 +142,23 @@ def profile_serve(a):
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--steps_warmup", type=int, default=100)
-    p.add_argument("--only", choices=["train", "serve"], default=None)
-    p.add_argument("--serve_ckpt", default=os.path.join(_ROOT, "results", "chip_smoke", "serve"),
+    p.add_argument("--only", choices=["train", "palette", "serve"], default=None)
+    pal_ws = os.path.join(_ROOT, "results_palette", "chip_smoke", "version_1")
+    p.add_argument("--serve_ckpt", default=pal_ws,
                    help="palette checkpoint or directory to serve")
+    p.add_argument("--palette_ws", default=pal_ws,
+                   help="palette training workspace to resume for the palette part")
+    p.add_argument("--nerf_ws", default=os.path.join(_ROOT, "results", "chip_smoke", "version_1"),
+                   help="the stage-1 workspace it was trained on")
     a = p.parse_args(argv)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip())
-    if a.only != "serve":
+    if a.only in (None, "train"):
         profile_train(a)
-    if a.only != "train":
+    if a.only in (None, "palette"):
+        profile_palette(a)
+    if a.only in (None, "serve"):
         profile_serve(a)
 
 

@@ -15,6 +15,7 @@ march, the fine eval grid and the background net are not ported yet.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
@@ -42,9 +43,15 @@ class RenderSettings:
     compaction_rounds: tuple = ()
 
 
-def _aabb(settings: RenderSettings, device) -> torch.Tensor:
-    b = settings.bound
+@functools.lru_cache(maxsize=None)
+def _aabb_of(bound: float, device: torch.device) -> torch.Tensor:
+    b = bound
     return torch.tensor([-b, -b, -b, b, b, b], dtype=torch.float32, device=device)
+
+
+def _aabb(settings: RenderSettings, device) -> torch.Tensor:
+    """The scene box [6] on ``device`` (read-only; uploaded once, not per render)."""
+    return _aabb_of(settings.bound, torch.device(device))
 
 
 def _march(rays_o, rays_d, nears, fars, bitfield, settings: RenderSettings,

@@ -1,22 +1,38 @@
-"""Palette edits: RegionEdit recoloring and the Stylizer parameters.
+"""Palette volume renderer: training branch, eval branch with edit hooks.
 
-Port of the edit half of ``palettenerf_tpu/render/palette_renderer.py:42-131``
-(reference ``palette/renderer.py:83-183``): ``RegionEdit`` per-palette HSV recolor with
-optional spatial / semantic Gaussian masks, ``region_edit_delta_hsv`` (the per-basis
-edit from an original and an edited palette), ``apply_region_edit`` (the per-sample
-recolor of the exact renderer, the sweep's reference), and the ``StylizerParams``
-that the sweep renderer applies. The palette train / eval renderers
-(``render_palette_train``, ``render_palette_eval``) come with the palette trainer.
+Port of ``palettenerf_tpu/render/palette_renderer.py`` (reference ``palette/renderer.py``,
+PaletteRenderer.run_cuda). Same fixed-width pipeline as the NeRF renderer; the palette
+blend
+
+    rgbs = sum_p omega_p * softplus(radiance) * (basis_color_p + offsets_p) + view_dep
+
+(renderer.py:349-351) runs per sample, sigma is detached in training (:335), and all
+auxiliary channel maps (sparsity / offset / view-dep / smooth norms, view-dep / direct /
+diffuse rgb, clip features, per-basis omegas and rgbs) are composited with one shared
+weight computation.
+
+Edit hooks (eval): ``RegionEdit`` per-palette HSV recolor with optional spatial /
+semantic Gaussian masks (:83-147), the ``Stylizer`` style transfer (:151-183), and the
+scalar ``offsets_weight`` / ``view_dep_weight`` dials (:484, :494).
+
+Where the JAX functions draw from a key, these take the draws as arguments: the march
+jitter ``noise`` [N] and the smooth-loss jitter ``jit_u`` [N*S, 3].
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from ..models.palette import (PaletteSpec, palette_clip, palette_color, palette_density,
+                              palette_forward)
+from ..ops.composite import composite_channels, composite_weights
+from ..ops.rays import near_far_from_aabb
 from ..utils.color import hsv_to_rgb, rgb_to_hsv
+from .nerf_renderer import RenderSettings, _aabb, _background, _march
 
 
 class RegionEdit(NamedTuple):
@@ -107,3 +123,237 @@ def init_stylizer(num_basis: int, device="cpu") -> StylizerParams:
         dP=torch.zeros((1, num_basis, 3), device=device),
         ddelta=torch.eye(3, device=device)[None].repeat(num_basis, 1, 1),
     )
+
+
+def stylizer_arap_loss(s: StylizerParams) -> torch.Tensor:
+    """Orthogonality (as-rigid-as-possible) penalty on ddelta (renderer.py:162-164)."""
+    eye = torch.eye(3, device=s.ddelta.device)[None]
+    return ((torch.einsum("pij,pkj->pik", s.ddelta, s.ddelta) - eye) ** 2).sum()
+
+
+def apply_stylizer(s: StylizerParams, radiance, omega, palette, offsets, view_dep=None):
+    """radiance [M,1,1], omega [M,P,1], palette [1|M,P,3], offsets [M,P,3]
+    -> rgbs [M,3] (renderer.py:166-183)."""
+    pal = palette + s.dP
+    offs = torch.einsum("npi,pij->npj", offsets, s.ddelta)
+    basis_rgb = ((F.softplus(radiance) + s.dI[None, :, None]).clamp_min(0.0)
+                 * (pal + offs)).clamp(0.0, 1.0)
+    rgbs = (omega * basis_rgb).sum(-2)
+    if view_dep is not None:
+        rgbs = rgbs + view_dep.detach()
+    return rgbs
+
+
+# --------------------------------------------------------------------------- render
+
+class _Clip01(torch.autograd.Function):
+    """clamp(x, 0, 1) with the gradient of ``jnp.clip``: all of it inside, none outside,
+    half where x equals a bound (``torch.clamp`` passes all of it there). An extracted
+    palette has entries that are exactly 0 or 1, so the rule is met in training."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x.clamp(0.0, 1.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        inside = ((x > 0.0) & (x < 1.0)).to(g.dtype)
+        tie = ((x == 0.0) | (x == 1.0)).to(g.dtype)
+        return g * (inside + 0.5 * tie)
+
+
+def clip01(x: torch.Tensor) -> torch.Tensor:
+    return _Clip01.apply(x)
+
+
+def _train_forward(params, spec: PaletteSpec, x: torch.Tensor, d: torch.Tensor):
+    """``palette_forward`` for the train render, with the density branch outside autograd.
+    The render detaches sigma and the model detaches the geo feature, so no gradient can
+    reach ``encoder`` or ``sigma_net``: the values are the same, and autograd neither
+    keeps that encode's corner indices nor scatters a gradient of zeros for it."""
+    with torch.no_grad():
+        dens = palette_density(params, spec, x)
+    clip_feat = palette_clip(params, spec, x, dens["sigma"])
+    return (dens["sigma"], clip_feat) + palette_color(params, spec, x, d, dens["geo_feat"])
+
+
+def render_palette_train(
+    params,
+    spec: PaletteSpec,
+    bitfield: torch.Tensor,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    settings: RenderSettings,
+    bg_color: Optional[torch.Tensor] = None,
+    freeze_basis_color: bool = True,
+    require_smooth_loss: bool = False,
+    noise: Optional[torch.Tensor] = None,
+    jit_u: Optional[torch.Tensor] = None,
+):
+    """Differentiable palette train render (palette/renderer.py:321-429).
+
+    ``noise`` [N] jitters the march (None: no jitter); ``jit_u`` [N*S, 3] in [0, 1) is the
+    smooth loss's position jitter, needed with ``require_smooth_loss``. Returns the
+    reference's full result dict: image, depth, weights_sum, plus the composited aux maps
+    (omega_sparsity, view_dep_norm, offsets_norm, smooth_norm, view_dep_rgb, direct_rgb,
+    diffuse_rgb, clip_feat, basis_acc). Sigma and the geo feature carry no gradient, so
+    ``encoder`` and ``sigma_net`` get none. A padded sample slot has weight zero and adds
+    exactly zero to every map.
+    """
+    n = rays_o.shape[0]
+    P = spec.num_basis
+    b = settings.bound
+    dev = rays_o.device
+    nears, fars = near_far_from_aabb(rays_o, rays_d, _aabb(settings, dev), settings.min_near)
+    bg = _background(bg_color, dev)
+    m = _march(rays_o, rays_d, nears, fars, bitfield, settings, settings.num_samples, noise)
+    S = settings.num_samples
+    x = m.xyzs.reshape(-1, 3)
+    d = rays_d[:, None, :].expand_as(m.xyzs).reshape(-1, 3)
+    M = x.shape[0]
+
+    sigma, clip_feat, omega, offsets_radiance, view_dep, diffuse = _train_forward(
+        params, spec, x, d)
+    sigma = sigma * settings.density_scale                    # detached: renderer.py:334-335
+
+    offsets = offsets_radiance[..., :-1].reshape(M, P, 3)
+    radiance = offsets_radiance[..., -1:].reshape(M, 1, 1)
+    basis_color = clip01(params["basis_color"])[None]
+    if freeze_basis_color:
+        basis_color = basis_color.detach()
+    final_color = F.softplus(radiance) * (basis_color + offsets)
+    rgbs = (omega.reshape(M, P, 1) * final_color).sum(-2) + view_dep.detach()   # :349-351
+    direct_rgb = diffuse + view_dep
+
+    # per-sample regularizer channels (:357-359)
+    omega_sparsity = omega.sum(-1, keepdim=True) / ((omega ** 2).sum(-1, keepdim=True) + 1e-6) - 1.0
+    offsets_norm = (offsets ** 2).sum(-1).sum(-1, keepdim=True)
+    view_dep_norm = (view_dep ** 2).sum(-1, keepdim=True)
+
+    if require_smooth_loss:
+        # jittered re-forward with bilateral weight (:360-378)
+        if jit_u is None:
+            raise ValueError("require_smooth_loss needs jit_u [N*S, 3]")
+        x_diff = (x + jit_u * b * 0.03).clamp(-b, b)
+        _, clip_d, omega_d, _, _, diffuse_d = _train_forward(params, spec, x_diff, d)
+        with torch.no_grad():
+            xyz_w = ((x - x_diff) ** 2).sum(-1, keepdim=True) / b ** 2 / spec.smooth_sigma_xyz
+            rgb_w = ((diffuse - diffuse_d) ** 2).sum(-1, keepdim=True) / spec.smooth_sigma_color
+            if spec.pred_clip and spec.smooth_sigma_clip > 0:
+                clip_w = torch.sqrt(((clip_feat - clip_d) ** 2).sum(-1, keepdim=True)
+                                    + 1e-12) / spec.smooth_sigma_clip
+            else:
+                clip_w = 0.0
+            smooth_w = torch.exp(-xyz_w - rgb_w - clip_w)
+        smooth_norm = ((omega_d - omega) ** 2).sum(-1, keepdim=True) * smooth_w
+        if spec.pred_clip:
+            smooth_norm = smooth_norm + ((clip_d - clip_feat) ** 2).sum(-1, keepdim=True) * smooth_w
+    else:
+        smooth_norm = torch.zeros_like(omega_sparsity)
+
+    # composite everything with one weight pass
+    w, ws, _ = composite_weights(sigma.reshape(n, S), m.dts, m.mask, settings.t_thresh)
+    depth = (w * m.t_cum).sum(-1)
+    image = composite_channels(w, rgbs.reshape(n, S, 3))
+    aux = torch.cat([omega_sparsity, view_dep_norm, offsets_norm, smooth_norm,
+                     view_dep, direct_rgb, diffuse, clip_feat, omega], -1).reshape(n, S, -1)
+    aux_map = composite_channels(w, aux)
+
+    c0, C = 4, spec.clip_dim
+    rest = (1.0 - ws)[:, None] * bg
+    return {
+        "image": image + rest,
+        "depth": (depth - nears).clamp_min(0.0) / (fars - nears).clamp_min(1e-6),
+        "weights_sum": ws,
+        "omega_sparsity": aux_map[:, 0],
+        "view_dep_norm": aux_map[:, 1],
+        "offsets_norm": aux_map[:, 2],
+        "smooth_norm": aux_map[:, 3],
+        "view_dep_rgb": aux_map[:, c0:c0 + 3],
+        "direct_rgb": aux_map[:, c0 + 3:c0 + 6] + rest,
+        "diffuse_rgb": aux_map[:, c0 + 6:c0 + 9],
+        "clip_feat": aux_map[:, c0 + 9:c0 + 9 + C],
+        "basis_acc": aux_map[:, c0 + 9 + C:c0 + 9 + C + P],
+    }
+
+
+@torch.no_grad()
+def render_palette_eval(
+    params,
+    spec: PaletteSpec,
+    bitfield: torch.Tensor,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    settings: RenderSettings,
+    bg_color: Optional[torch.Tensor] = None,
+    edit: Optional[RegionEdit] = None,
+    stylizer: Optional[StylizerParams] = None,
+    offsets_weight: float = 1.0,
+    view_dep_weight: float = 1.0,
+    gui_mode: bool = False,
+):
+    """Eval / editing render (palette/renderer.py:430-552): one pass over the [N, S]
+    sample slots, no alive-ray loop. Returns the reference's eval dict including the
+    per-basis maps (not with ``gui_mode``).
+
+    The field is evaluated only in the slots that hold a sample: the others keep zeros,
+    and their compositing weight is zero either way.
+    """
+    n = rays_o.shape[0]
+    P = spec.num_basis
+    dev = rays_o.device
+    nears, fars = near_far_from_aabb(rays_o, rays_d, _aabb(settings, dev), settings.min_near)
+    bg = _background(bg_color, dev)
+    m = _march(rays_o, rays_d, nears, fars, bitfield, settings, settings.num_samples)
+    S = settings.num_samples
+    held = m.mask.reshape(-1).nonzero(as_tuple=True)[0]
+    x = m.xyzs.reshape(-1, 3)[held]
+    d = rays_d[:, None, :].expand_as(m.xyzs).reshape(-1, 3)[held]
+    mb = x.shape[0]
+
+    sigma, clip_feat, omega, offsets_radiance, view_dep, diffuse = palette_forward(
+        params, spec, x, d)
+    sigma = sigma * settings.density_scale
+    offsets = offsets_radiance[..., :-1].reshape(mb, P, 3)
+    radiance = offsets_radiance[..., -1:].reshape(mb, 1, 1)
+    omega_c = omega.reshape(mb, P, 1)
+    basis_color = params["basis_color"].clamp(0.0, 1.0)[None]
+    unscaled = basis_color + offsets
+    if stylizer is not None:
+        rgbs = apply_stylizer(stylizer, radiance, omega_c, basis_color, offsets, view_dep)
+        basis_rgb = omega_c * (F.softplus(radiance) * unscaled).clamp(0.0, 1.0)
+    else:
+        final_color = F.softplus(radiance) * (basis_color + offsets_weight * offsets)
+        if edit is not None:
+            final_color = apply_region_edit(edit, final_color, x, clip_feat)
+        basis_rgb = omega_c * final_color
+        rgbs = basis_rgb.sum(-2) + view_dep_weight * view_dep  # :494
+
+    def slots(v):
+        """[held, C] -> [n, S, C], zeros in the slots without a sample."""
+        full = torch.zeros((n * S, v.shape[-1]), dtype=v.dtype, device=dev)
+        return full.index_copy_(0, held, v).reshape(n, S, -1)
+
+    w, ws, _ = composite_weights(slots(sigma[:, None])[..., 0], m.dts, m.mask, settings.t_thresh)
+    depth = (w * m.t_cum).sum(-1)
+    rest = (1.0 - ws)[:, None] * bg
+    depth_abs = depth + ws * nears  # absolute, matching raymarching.cu:1078-1079
+    out = {
+        "image": composite_channels(w, slots(rgbs)) + rest,
+        "depth": (depth_abs - nears).clamp_min(0.0) / (fars - nears).clamp_min(1e-6),
+        "depth_origin": depth_abs,
+        "weights_sum": ws,
+        "clip_feat": composite_channels(w, slots(clip_feat)),
+    }
+    if not gui_mode:
+        aux_map = composite_channels(w, slots(torch.cat(
+            [diffuse + view_dep, view_dep, omega, basis_rgb.reshape(mb, P * 3),
+             unscaled.reshape(mb, P * 3)], -1)))
+        out["direct_rgb"] = aux_map[:, 0:3] + rest
+        out["view_dep_rgb"] = aux_map[:, 3:6]
+        out["basis_acc"] = aux_map[:, 6:6 + P]
+        out["basis_rgb"] = aux_map[:, 6 + P:6 + 4 * P]
+        out["unscaled_basis_rgb"] = aux_map[:, 6 + 4 * P:6 + 7 * P]
+    return out

@@ -12,7 +12,10 @@ layers, ``"b"`` where the layer has a bias) into the port's parameter dict.
 ``ml_dtypes``: their hash tables are ``ml_dtypes`` bfloat16 arrays, which it reads as
 ``numpy.uint16`` arrays of the same 16-bit words. ``_leaf_to_tensor`` views such words
 as ``torch.bfloat16``, bit for bit (the JAX package writes no uint16 leaves of its own).
-``save_reference_checkpoint`` writes a parameter dict back in that layout (f32 leaves).
+``save_reference_checkpoint`` writes a parameter dict back in that layout (f32 leaves);
+a trained palette state written so (``basis_color_origin`` and ``hist_weights``
+included) is what ``main_serve`` and the JAX package's loader read.
+``merge_params_non_strict`` is the NeRF -> Palette warm start by parameter name.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 import glob
 import os
 import pickle
+import zipfile
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -123,6 +127,21 @@ def load_reference_checkpoint(path: str) -> Dict[str, Any]:
         return _ReferenceUnpickler(f).load()
 
 
+def load_palette_checkpoint(path: str, device="cpu"):
+    """A trained palette checkpoint, whichever package wrote it -> (the port's parameter
+    dict on ``device``, the grid-state dict or None). A ``torch.save`` file is the port's
+    own (``PaletteTrainer.save_checkpoint``); anything else is read as a JAX-package
+    pickle."""
+    if zipfile.is_zipfile(path):
+        payload = load_checkpoint(path)
+        params = {k: _layers_to(v, device) if isinstance(v, list) else v.to(device)
+                  for k, v in payload["params"].items()}
+        gs = payload.get("grid_state")
+        return params, gs and {k: v.numpy() for k, v in gs.items()}
+    payload = load_reference_checkpoint(path)
+    return palette_params_from_jax(payload["params"], device=device), payload.get("grid_state")
+
+
 def save_reference_checkpoint(path: str, params: Dict[str, Any], epoch: int = 0,
                               global_step: int = 0,
                               grid_state: Optional[Dict[str, torch.Tensor]] = None) -> str:
@@ -146,6 +165,46 @@ def save_reference_checkpoint(path: str, params: Dict[str, Any], epoch: int = 0,
     with open(path, "wb") as f:
         pickle.dump(payload, f)
     return path
+
+
+def merge_params_non_strict(target, source) -> tuple:
+    """Copy source leaves into target wherever the (path, shape) matches.
+
+    The counterpart of torch's ``load_state_dict(strict=False)``, used for the NeRF ->
+    Palette warm start (``palettenerf_tpu/train/checkpoint.py:71-106``). Trees are dicts
+    and lists of tensors (or numpy arrays, which become f32 tensors); a merged leaf is a
+    copy on the target leaf's device. Returns (merged, missing_paths, loaded_paths).
+    """
+    loaded, missing = [], []
+
+    def walk(t, s, path):
+        if isinstance(t, dict):
+            out = {}
+            for k, v in t.items():
+                if isinstance(s, dict) and k in s:
+                    out[k] = walk(v, s[k], path + (k,))
+                else:
+                    missing.append("/".join(map(str, path + (k,))))
+                    out[k] = v
+            return out
+        if isinstance(t, (list, tuple)):
+            out = []
+            for i, v in enumerate(t):
+                if isinstance(s, (list, tuple)) and i < len(s):
+                    out.append(walk(v, s[i], path + (i,)))
+                else:
+                    missing.append("/".join(map(str, path + (i,))))
+                    out.append(v)
+            return type(t)(out) if isinstance(t, tuple) else out
+        if s is not None and tuple(getattr(s, "shape", (None,))) == tuple(t.shape):
+            loaded.append("/".join(map(str, path)))
+            src = s if torch.is_tensor(s) else _leaf_to_tensor(s)
+            return src.detach().to(device=t.device, dtype=t.dtype, copy=True)
+        missing.append("/".join(map(str, path)))
+        return t
+
+    merged = walk(target, source, ())
+    return merged, missing, loaded
 
 
 def save_checkpoint(ckpt_dir: str, name: str, epoch: int, payload: Dict[str, Any],

@@ -1,0 +1,421 @@
+"""PaletteNeRF trainer (stage 3) and the palette extraction that feeds it (stage 2).
+
+Port of ``palettenerf_tpu/train/palette_trainer.py`` (reference ``PaletteTrainer``,
+``palette/utils.py:296-1331``):
+
+- warm start of the sigma / color nets and the density grid from the stage-1 NeRF
+  checkpoint by parameter name (:429-432, :1306-1330); the density grid stays frozen
+  during palette training (:644-646).
+- loss (:486-571): MSE(image) + MSE(direct_rgb) [+ MSE(clip_feat)]
+  + lambda_sparsity * omega_sparsity + lambda_offsets * |offsets|^2
+  + lambda_view_dep * |view_dep|^2 + lambda_smooth * smooth
+  + lambda_palette * |basis_color - origin|^2 + lambda_weight * MSE(basis_acc, gt weights).
+  The paired-pixel patch term needs the ``random_size`` sampler, which is not ported.
+- epoch schedules (:651-674): lambda_weight decays linearly to 0 by
+  ``lweight_decay_epoch``; the basis colors are unfrozen and lambda_palette switched on
+  after ``max_freeze_palette_epoch``; the smooth loss starts after
+  ``smooth_loss_start_epoch``. A resumed run re-derives them from its epoch.
+- ``extract_palette`` (:1135-1200): render all training views with the stage-1 NeRF,
+  keep foreground pixels (weights_sum > 0.5), intensity-normalize the ground-truth colors
+  ((rgb + 0.05) / |.|), run the RGBXY extraction -> palette.npz / hist_weights.npz.
+
+What moves and what does not. ``encoder`` and ``sigma_net`` get no gradient in this stage
+(the renderer detaches sigma, the model the geo feature), ``basis_color_origin`` and
+``hist_weights`` are frozen: none of them is in the optimizer or the EMA update, so they
+keep their values bit for bit. ``basis_color`` is in the optimizer from the start and is
+stepped with a zero gradient while frozen: ``torch.optim.Adam`` counts steps per tensor,
+optax once for all, and the bias correction after the unfreeze must see the same count.
+Rebuilding the parameters (``initialize_palette``, ``load_nerf_checkpoint``) restarts
+Adam's moments and the lr schedule's count, as re-initializing the optax state does.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+import zipfile
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..data.rays import gen_rays_torch
+from ..models.mlp import param_leaves
+from ..models.palette import (FROZEN, PaletteSpec, get_palette_weight_with_hist, init_palette,
+                              initialize_palette)
+from ..ops.occupancy import GridState
+from ..ops.scatter import check_refused
+from ..render.palette_renderer import (RegionEdit, StylizerParams, render_palette_eval,
+                                       render_palette_train)
+from . import checkpoint as ckpt_lib
+from .trainer import Trainer
+
+
+class PaletteTrainer(Trainer):
+    """``opt`` is a Config, ``spec`` a PaletteSpec. Runs on ``device`` (CUDA by default)."""
+
+    def __init__(
+        self,
+        name: str,
+        opt: Config,
+        spec: PaletteSpec,
+        params=None,
+        workspace: str = "workspace",
+        metrics=None,
+        use_checkpoint: str = "latest",
+        nerf_path: Optional[str] = None,
+        ema_decay: Optional[float] = 0.95,
+        eval_interval: int = 50,
+        max_keep_ckpt: int = 2,
+        mute: bool = False,
+        device="cuda",
+    ):
+        self.palette_spec = spec
+        self.freeze_basis_color = opt.use_initialization_from_rgbxy
+        self.require_smooth_loss = False
+        self.lambda_palette = 0.0
+        self.lambda_weight = opt.lambda_weight
+        self.edit: Optional[RegionEdit] = None
+        self.stylizer: Optional[StylizerParams] = None
+        self.offsets_weight = 1.0
+        self.view_dep_weight = 1.0
+        # leaves that this stage never moves (see the module docstring)
+        self._fixed = FROZEN + ("encoder", "sigma_net") + (
+            () if spec.pred_clip else ("encoder_clip",))
+
+        super().__init__(
+            name, opt, spec, params=params, workspace=workspace, metrics=metrics,
+            use_checkpoint=use_checkpoint, ema_decay=ema_decay, eval_interval=eval_interval,
+            max_keep_ckpt=max_keep_ckpt, mute=mute, device=device,
+        )
+        # warm-start from stage 1 only on fresh runs: resuming a palette checkpoint must
+        # not stomp the palette-trained color head with stage-1 weights
+        if nerf_path is not None and self.global_step == 0:
+            self.load_nerf_checkpoint(nerf_path)
+
+    def _init_params(self):
+        return init_palette(self.palette_spec, self.generator, self.device)
+
+    def _trainable(self, params):
+        return param_leaves(params, skip=self._fixed)
+
+    def set_edit(self, edit: Optional[RegionEdit] = None,
+                 stylizer: Optional[StylizerParams] = None,
+                 offsets_weight: float = 1.0, view_dep_weight: float = 1.0):
+        """Headless editing API: set the render-time edit state of the eval renders."""
+        self.edit = edit
+        self.stylizer = stylizer
+        self.offsets_weight = offsets_weight
+        self.view_dep_weight = view_dep_weight
+
+    # ------------------------------------------------------------------ training
+
+    def initialize_palette(self, color_list=None, hist_weights=None):
+        self._set_params(initialize_palette(self.params, self.palette_spec, color_list,
+                                            hist_weights))
+
+    def train_step(self, rays_o, rays_d, images, gt_feat=None, bg=None, noise=None,
+                   jit_u=None):
+        """One optimizer step on a ray batch; returns (loss, per_ray), detached.
+
+        ``bg`` [N, 3] (background for RGBA gt), ``noise`` [N] (march jitter) and ``jit_u``
+        [N*S, 3] (smooth-loss jitter) are drawn from the trainer's generator, in this
+        order, when None. ``gt_feat`` [N, clip_dim] is needed with ``pred_clip``.
+        """
+        opt, spec, dev = self.opt, self.palette_spec, self.device
+        n = rays_o.shape[0]
+        smooth = self.require_smooth_loss
+        if smooth and opt.random_size > 0 and opt.lambda_patchsmooth > 0:
+            raise NotImplementedError("the patch-smooth term (random_size) is not ported yet")
+        if images.shape[-1] == 4 and spec.bg_radius <= 0:
+            if bg is None:
+                bg = torch.rand((n, 3), generator=self.generator, device=dev)
+            gt = images[..., :3] * images[..., 3:] + bg * (1.0 - images[..., 3:])
+        else:
+            bg = torch.ones((3,), dtype=torch.float32, device=dev)
+            gt = images[..., :3]
+        if noise is None:
+            noise = torch.rand((n,), generator=self.generator, device=dev)
+        if smooth and jit_u is None:
+            jit_u = torch.rand((n * self.train_settings.num_samples, 3),
+                               generator=self.generator, device=dev)
+
+        p = self.params
+        out = render_palette_train(p, spec, self.grid_state.bitfield, rays_o, rays_d,
+                                   self.train_settings, bg_color=bg,
+                                   freeze_basis_color=self.freeze_basis_color,
+                                   require_smooth_loss=smooth, noise=noise, jit_u=jit_u)
+        per_ray = ((out["image"] - gt) ** 2).mean(-1)
+        loss = per_ray.mean()
+        loss = loss + ((out["direct_rgb"] - gt) ** 2).mean()
+        if spec.pred_clip:
+            loss = loss + ((out["clip_feat"] - gt_feat) ** 2).mean()
+        loss = loss + opt.lambda_sparsity * out["omega_sparsity"].mean()
+        loss = loss + opt.lambda_offsets * out["offsets_norm"].mean()
+        loss = loss + opt.lambda_view_dep * out["view_dep_norm"].mean()
+        if smooth and opt.lambda_smooth > 0:
+            loss = loss + opt.lambda_smooth * out["smooth_norm"].mean()
+        if self.lambda_palette:
+            loss = loss + self.lambda_palette * (
+                (p["basis_color"] - p["basis_color_origin"]) ** 2).sum(-1).mean()
+        if "hist_weights" in p:
+            gt_w = get_palette_weight_with_hist(gt, p["hist_weights"]).detach()
+            loss = loss + self.lambda_weight * ((gt_w - out["basis_acc"]) ** 2).mean()
+
+        self._update(loss, zero_grad_for=(p["basis_color"],))
+        return loss.detach(), per_ray.detach()
+
+    def _apply_schedule(self):
+        """The schedule flags the epoch count implies (palette/utils.py:651-674)."""
+        opt = self.opt
+        if self.epoch >= opt.max_freeze_palette_epoch or not opt.use_initialization_from_rgbxy:
+            self.freeze_basis_color = False
+            self.lambda_palette = opt.lambda_palette
+        if self.epoch >= opt.smooth_loss_start_epoch:
+            self.require_smooth_loss = True
+
+    def train(self, train_ds, valid_ds=None, max_epochs: int = 1):
+        # the density grid is inherited frozen from the NeRF checkpoint: no refresh and
+        # no mark_untrained (palette/utils.py:644-646)
+        opt = self.opt
+        ckpt_every = opt.ckpt_interval if opt.ckpt_interval > 0 else 1
+        self._apply_schedule()  # resume: what the end-of-epoch updates below had left
+        for _ in range(max_epochs - self.epoch):
+            self.epoch += 1
+            self.lambda_weight = opt.lambda_weight * max(
+                0.0, 1.0 - self.epoch / opt.lweight_decay_epoch)
+            self.train_one_epoch(train_ds)
+            if self.epoch % ckpt_every == 0 or self.epoch == max_epochs:
+                self.save_checkpoint(best=False)
+            if valid_ds is not None and self.epoch % self.eval_interval == 0:
+                self.evaluate_one_epoch(valid_ds)
+                self.save_checkpoint(best=True)
+            self._apply_schedule()
+        return self.stats
+
+    def train_one_epoch(self, train_ds):
+        """One step per training image, in a random order, on device-resident images
+        (and LSeg features with ``pred_clip``)."""
+        t0 = time.time()
+        if self._dev_src is not train_ds:
+            imgs = torch.as_tensor(train_ds.images)
+            self._dev_images = imgs.reshape(imgs.shape[0], -1, imgs.shape[-1]).to(self.device)
+            self._dev_poses = torch.as_tensor(train_ds.poses).to(self.device)
+            feats = getattr(train_ds, "feat_images", None)
+            self._dev_feats = None if feats is None else torch.as_tensor(feats).reshape(
+                feats.shape[0], -1, feats.shape[-1]).to(self.device)
+            self._dev_src = train_ds
+        if self.palette_spec.pred_clip and self._dev_feats is None:
+            raise ValueError("pred_clip training needs the dataset's lseg_feature arrays")
+        B = self._dev_poses.shape[0]
+        H, W = train_ds.H, train_ds.W
+        intr = [float(v) for v in train_ds.intrinsics]
+        order = torch.randperm(B, generator=self.generator, device=self.device).tolist()
+        losses = []
+        for idx in order:
+            inds = torch.randint(0, H * W, (self.opt.num_rays,), generator=self.generator,
+                                 device=self.device)
+            pix = self._dev_images[idx][inds]
+            gt_feat = None if self._dev_feats is None else self._dev_feats[idx][inds]
+            rays_o, rays_d = gen_rays_torch(self._dev_poses[idx], intr, H, W, inds)
+            loss, _ = self.train_step(rays_o, rays_d, pix, gt_feat=gt_feat)
+            losses.append(loss)
+            self.global_step += 1
+        avg = float(torch.stack(losses).mean())
+        check_refused()  # the host has just waited for the device: rows the kernel refused
+        self.stats["loss"].append(avg)
+        self.stats.setdefault("epoch_seconds", []).append(time.time() - t0)
+        self.log(f"[epoch {self.epoch}] loss={avg:.6f} "
+                 f"({B} steps, {time.time() - t0:.1f}s, step={self.global_step}, "
+                 f"lw={self.lambda_weight:.4f}, lp={self.lambda_palette:.4f}, "
+                 f"freeze={self.freeze_basis_color}, smooth={self.require_smooth_loss})")
+        return avg
+
+    # ------------------------------------------------------------------ eval / test
+
+    def _render_chunk(self, params, rays_o, rays_d, bg):
+        return render_palette_eval(
+            params, self.palette_spec, self.grid_state.bitfield, rays_o, rays_d,
+            self.eval_settings, bg, edit=self.edit, stylizer=self.stylizer,
+            offsets_weight=self.offsets_weight, view_dep_weight=self.view_dep_weight)
+
+    def evaluate_one_epoch(self, valid_ds, save_images: bool = True) -> float:
+        for m in self.metrics:
+            m.clear()
+        total_loss, n = 0.0, 0
+        for i, data in enumerate(valid_ds.iter_epoch()):
+            out = self.eval_step_full(data)
+            pred = out["image"]
+            img = data.get("images")
+            if img is not None:
+                gt = img[..., :3]
+                if img.shape[-1] == 4:
+                    gt = img[..., :3] * img[..., 3:] + 1.0 * (1 - img[..., 3:])
+                total_loss += float(((pred - gt) ** 2).mean())
+                n += 1
+                for m in self.metrics:
+                    if getattr(m, "basis_metric", False):
+                        m.update(out["basis_acc"], out["weights_sum"])
+                    else:
+                        m.update(pred[None], gt[None])
+            if save_images:
+                base = os.path.join(self.workspace, "validation",
+                                    f"{self.name}_ep{self.epoch:04d}_{i:04d}")
+                self._save_image(base + ".png", pred)
+                self._save_palette_maps(base, out)
+        result = self.metrics[0].measure() if n else 0.0
+        self.stats["valid_loss"].append(total_loss / max(n, 1))
+        self.stats["results"].append(result)
+        if self.stats["best_result"] is None or result > self.stats["best_result"]:
+            self.stats["best_result"] = result
+        self.log(f"[eval epoch {self.epoch}] loss={total_loss / max(n, 1):.6f} | "
+                 + " | ".join(m.report() for m in self.metrics))
+        return result
+
+    def _save_palette_maps(self, base: str, out: dict):
+        """Per-basis decomposition maps + PCA clip features (palette/utils.py:833-909)."""
+        P = self.palette_spec.num_basis
+        H, W = out["image"].shape[:2]
+        if "basis_rgb" in out:
+            basis_rgb = out["basis_rgb"].reshape(H, W, P, 3)
+            for p in range(P):
+                self._save_image(base + f"_basis{p:02d}_rgb.png", basis_rgb[..., p, :])
+                self._save_image(base + f"_basis{p:02d}_acc.png",
+                                 np.repeat(out["basis_acc"][..., p:p + 1], 3, -1))
+        if "clip_feat" in out and self.palette_spec.pred_clip:
+            cf = out["clip_feat"].reshape(-1, out["clip_feat"].shape[-1])
+            cf = cf - cf.mean(0)
+            u, s, _ = np.linalg.svd(cf, full_matrices=False)
+            proj = (u[:, :3] * s[:3]).reshape(H, W, 3)
+            proj = (proj - proj.min()) / (np.ptp(proj) + 1e-8)
+            self._save_image(base + "_clip_pca.png", proj)
+
+    def test(self, test_ds, save_path: Optional[str] = None, name: Optional[str] = None):
+        """Test renders to pngs, with the per-basis decomposition (palette/utils.py:
+        1050-1078). Returns the uint8 rgb frames. Video writing is not ported."""
+        save_path = save_path or os.path.join(self.workspace, "results")
+        name = name or f"{self.name}_ep{self.epoch:04d}"
+        P = self.palette_spec.num_basis
+        frames = []
+        t0 = time.time()
+        for i, data in enumerate(test_ds.iter_epoch()):
+            out = self.eval_step_full(data)
+            frames.append((np.clip(out["image"], 0, 1) * 255).astype(np.uint8))
+            self._save_image(os.path.join(save_path, f"{name}_{i:04d}_rgb.png"), out["image"])
+            H, W = out["image"].shape[:2]
+            basis_rgb = out["basis_rgb"].reshape(H, W, P, 3)
+            for p in range(P):
+                self._save_image(os.path.join(save_path, f"{name}_{i:04d}_basis{p:02d}.png"),
+                                 basis_rgb[..., p, :])
+        dt = time.time() - t0
+        self.log(f"[test] {len(frames)} frames, total {dt:.2f}s, "
+                 f"avg {dt / max(len(frames), 1):.3f}s/frame")
+        return frames
+
+    # ------------------------------------------------------------------ extraction
+
+    def extract_palette(self, nerf_trainer, loader, normalize_input: bool = False,
+                        save_path: Optional[str] = None, via_sweep: bool = False,
+                        sweep_resolution: int = 384, u_res: int = 448):
+        """Stage 2: render all training views with the stage-1 NeRF and run the RGBXY
+        extraction (palette/utils.py:1135-1200). ``nerf_trainer`` provides the renderer;
+        the ground-truth pixels come from the loader.
+
+        ``via_sweep`` renders the views with the shear-warp sweep over a bake of the NeRF
+        instead of the per-ray network path. The extraction only takes the renders'
+        foreground mask (weights_sum > 0.5) and the depth-reconstructed xyz, both tolerant
+        of the bake's resolution; the colors come from the dataset either way. The
+        extraction statistics depend on the image resolution, so compare palettes at one
+        ``downscale``. A camera inside the volume's slab along its sweep axis cannot be
+        factorized: that view goes through the per-ray path.
+
+        Returns (palette_rgb [P, 3], hist_weights [32, 32, 32, P]); ``self.extract_stats``
+        holds the counts of foreground samples and of per-ray fallback views.
+        """
+        from ..extraction.extract import palette_extraction
+
+        save_path = save_path or self.workspace
+        os.makedirs(save_path, exist_ok=True)
+        sv = None
+        if via_sweep:
+            from ..render.baking import bake_nerf, mask_with_bitfield
+            from ..render.sweep import build_sweep_volume, plan_sweep, render_sweep
+
+            t0 = time.time()
+            baked = bake_nerf(nerf_trainer.eval_params(), nerf_trainer.spec,
+                              resolution=sweep_resolution)
+            gs = nerf_trainer.grid_state
+            baked = mask_with_bitfield(baked, {"bitfield": gs.bitfield.cpu().numpy(),
+                                               "density_grid": gs.density_grid.cpu().numpy()})
+            sv = build_sweep_volume(baked)
+            del baked
+            self.log(f"[extract_palette] sweep volume baked in {time.time() - t0:.1f}s "
+                     f"(R={sweep_resolution})")
+        all_norm, all_xyz = [], []
+        n_fallback = 0
+        for data in loader.iter_epoch():
+            H, W = data["H"], data["W"]
+            use_sweep = False
+            if sv is not None:
+                pose = loader.poses[data["index"]]
+                plan = plan_sweep(np.asarray(pose), loader.intrinsics, H, W, sv.bound, u_res)
+                use_sweep = abs(float(plan.o_p[0])) > sv.bound * 1.02
+            if use_sweep:
+                out = render_sweep(sv, pose, loader.intrinsics, H, W, u_res=u_res,
+                                   min_near=self.opt.min_near,
+                                   t_thresh=self.opt.t_thresh_infer)
+                # one device-to-host move per view
+                w, depth_o = torch.stack([out["weights_sum"].reshape(-1),
+                                          out["depth_origin"].reshape(-1)]).cpu().numpy()
+            else:
+                n_fallback += 1 if sv is not None else 0
+                out = nerf_trainer.eval_step_full(data)
+                w = out["weights_sum"].reshape(-1)
+                depth_o = out.get("depth_origin", out["depth"]).reshape(-1)
+            gt = data["images"][..., :3].reshape(-1, 3)
+            if data["images"].shape[-1] == 4:
+                a = data["images"][..., 3:].reshape(-1, 1)
+                gt = gt * a + 1.0 * (1 - a)
+            valid = w > 0.5
+            norm = gt[valid] + np.float32(0.05)
+            all_norm.append(norm / np.linalg.norm(norm, axis=-1, keepdims=True))
+            all_xyz.append(data["rays_o"].reshape(-1, 3)[valid]
+                           + data["rays_d"].reshape(-1, 3)[valid] * depth_o[valid, None])
+        colors = np.concatenate(all_norm, 0)
+        xyzs = np.concatenate(all_xyz, 0)
+        if sv is not None and n_fallback:
+            self.log(f"[extract_palette] {n_fallback} inside-volume views used "
+                     "the per-ray path")
+        self.log(f"[extract_palette] {len(colors)} foreground samples")
+        self.extract_stats = {"foreground_samples": len(colors), "fallback_views": n_fallback}
+        return palette_extraction(
+            {"colors": colors, "xyzs": xyzs}, save_path,
+            normalize_input=normalize_input, error_thres=self.opt.error_thres,
+        )
+
+    # ------------------------------------------------------------------ warm start
+
+    def load_nerf_checkpoint(self, nerf_path: str):
+        """Non-strict load of the stage-1 weights and density grid (palette/utils.py:
+        1306-1330) from the newest ``ngp`` checkpoint under ``nerf_path``: the port's own
+        (``torch.save``) or a pickle of the JAX package."""
+        ckpt_dir = os.path.join(nerf_path, "checkpoints")
+        path = ckpt_lib.latest_checkpoint(ckpt_dir, "ngp")
+        if path is None:
+            raise FileNotFoundError(f"no NeRF checkpoint under {ckpt_dir}")
+        if zipfile.is_zipfile(path):
+            data = ckpt_lib.load_checkpoint(path)
+            source, gs = data["params"], data.get("grid_state")
+        else:
+            data = ckpt_lib.load_reference_checkpoint(path)
+            source, gs = ckpt_lib.params_from_jax(data["params"]), data.get("grid_state")
+        merged, missing, loaded = ckpt_lib.merge_params_non_strict(self.params, source)
+        self._set_params(merged)
+        self.log(f"[INFO] warm-started {len(loaded)} tensors from NeRF ckpt {path}; "
+                 f"palette-only tensors: {len(missing)}")
+        if gs is not None:
+            self.grid_state = GridState(**{
+                k: (v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))).to(self.device)
+                for k, v in gs.items()})
+            self.log("[INFO] inherited frozen density grid from NeRF ckpt")

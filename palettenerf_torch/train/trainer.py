@@ -32,7 +32,8 @@ from .. import resolve_device
 from ..config import Config
 from ..data.png import write_png
 from ..data.rays import gen_rays_torch
-from ..models.nerf import NeRFSpec, init_nerf, nerf_density, param_list
+from ..models.mlp import param_leaves
+from ..models.nerf import NeRFSpec, init_nerf, nerf_density
 from ..ops.occupancy import (GridState, init_grid_state, mark_untrained_grid,
                              update_density_grid)
 from ..ops.scatter import check_refused
@@ -63,10 +64,13 @@ def check_ported(opt: Config) -> None:
         raise NotImplementedError(f"not ported to palettenerf_torch yet: {', '.join(bad)}")
 
 
-def _copy_params(params, device, requires_grad: bool = False):
-    """A copy of a parameter dict (tensors and lists of tensors) on ``device``."""
+def _copy_params(params, device):
+    """A detached copy of a parameter dict on ``device``: tensors, and lists of layers
+    that are tensors or ``{"w", "b"}`` dicts of tensors."""
     def one(t):
-        return t.detach().to(device, copy=True).requires_grad_(requires_grad)
+        if isinstance(t, dict):
+            return {k: one(v) for k, v in t.items()}
+        return t.detach().to(device, copy=True)
 
     return {k: ([one(w) for w in v] if isinstance(v, list) else one(v))
             for k, v in params.items()}
@@ -92,6 +96,7 @@ class Trainer:
         max_keep_ckpt: int = 2,
         mute: bool = False,
         device="cuda",
+        metrics=None,
     ):
         check_ported(opt)
         self.name = name
@@ -103,11 +108,10 @@ class Trainer:
         self.eval_interval = eval_interval
         self.max_keep_ckpt = max_keep_ckpt
         self.mute = mute
-        self.metrics = [PSNRMeter()]
+        self.metrics = metrics if metrics is not None else [PSNRMeter()]
 
         self.epoch = 0
         self.global_step = 0
-        self.opt_step = 0  # optimizer updates made (the lr schedule's count)
         self.stats = {"loss": [], "valid_loss": [], "results": [], "best_result": None}
 
         os.makedirs(workspace, exist_ok=True)
@@ -116,10 +120,7 @@ class Trainer:
         self.log_path = os.path.join(workspace, f"log_{name}.txt")
 
         self.generator = torch.Generator(device=self.device).manual_seed(opt.seed)
-        if params is None:
-            params = init_nerf(spec, self.generator, self.device)
-        self.params = _copy_params(params, self.device, requires_grad=True)
-        self.ema_params = _copy_params(self.params, self.device)
+        self._set_params(params if params is not None else self._init_params())
 
         cascade = spec_cascade(spec)
         self.grid_state = init_grid_state(cascade, opt.grid_size, self.device)
@@ -136,11 +137,9 @@ class Trainer:
             num_samples=s_inf, t_thresh=opt.t_thresh_infer, min_near=opt.min_near,
             compaction_rounds=self._compaction_rounds(s_inf),
         )
-        self.optimizer = torch.optim.Adam(param_list(self.params), lr=opt.lr,
-                                          betas=(0.9, 0.99), eps=1e-15)
         self._dev_src = None
 
-        n_params = sum(p.numel() for p in param_list(self.params))
+        n_params = sum(p.numel() for p in param_leaves(self.params))
         self.log(f"[INFO] Trainer: {name} | {workspace} | {n_params} params | {self.device}")
         if use_checkpoint == "scratch":
             self.log("[INFO] Training from scratch ...")
@@ -152,6 +151,25 @@ class Trainer:
             self.load_checkpoint(use_checkpoint)
 
     # ------------------------------------------------------------------ helpers
+
+    def _init_params(self):
+        return init_nerf(self.spec, self.generator, self.device)
+
+    def _trainable(self, params):
+        """The tensors of ``params`` that the optimizer and the EMA move, in a fixed order."""
+        return param_leaves(params)
+
+    def _set_params(self, params, ema_params=None):
+        """Adopt ``params`` (copied to the device; EMA = a copy unless given) and start a
+        fresh optimizer on them: Adam's moments and the lr schedule's count restart."""
+        self.params = _copy_params(params, self.device)
+        for p in self._trainable(self.params):
+            p.requires_grad_(True)
+        self.ema_params = _copy_params(self.params if ema_params is None else ema_params,
+                                       self.device)
+        self.optimizer = torch.optim.Adam(self._trainable(self.params), lr=self.opt.lr,
+                                          betas=(0.9, 0.99), eps=1e-15)
+        self.opt_step = 0  # optimizer updates made (the lr schedule's count)
 
     def _compaction_rounds(self, s_inf: int) -> tuple:
         """All rays march s/4 samples, the top 1/4 by transmittance s/4 more, the
@@ -196,8 +214,19 @@ class Trainer:
         per_ray = ((out["image"] - gt) ** 2).mean(-1) + out["rgb_norm"] * opt.lambda_sparse
         loss = per_ray.mean()
 
+        self._update(loss)
+        return loss.detach(), per_ray.detach()
+
+    def _update(self, loss: torch.Tensor, zero_grad_for=()):
+        """Backward, one Adam step at the schedule's lr, EMA. A tensor of
+        ``zero_grad_for`` that got no gradient is stepped with a zero one, so that its
+        Adam step count runs on as optax's single count does."""
+        opt = self.opt
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        for p in zero_grad_for:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         lr = opt.lr * 0.1 ** min(self.opt_step / opt.iters, 1.0)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
@@ -205,10 +234,9 @@ class Trainer:
         self.opt_step += 1
         if self.ema_decay is not None:
             with torch.no_grad():
-                ema, cur = param_list(self.ema_params), param_list(self.params)
+                ema, cur = self._trainable(self.ema_params), self._trainable(self.params)
                 torch._foreach_mul_(ema, self.ema_decay)
                 torch._foreach_add_(ema, cur, alpha=1.0 - self.ema_decay)
-        return loss.detach(), per_ray.detach()
 
     def _density(self, params, pts: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():
@@ -279,14 +307,14 @@ class Trainer:
         bg = None if bg_color is None else torch.as_tensor(
             bg_color, dtype=torch.float32, device=self.device)
         params = self.eval_params()
-        outs = []
-        for start in range(0, rays_o.shape[0], chunk):
-            out = render_nerf_eval(params, self.spec, self.grid_state.bitfield,
-                                   rays_o[start:start + chunk].to(self.device),
-                                   rays_d[start:start + chunk].to(self.device),
-                                   self.eval_settings, bg)
-            outs.append(out)
+        outs = [self._render_chunk(params, rays_o[start:start + chunk].to(self.device),
+                                   rays_d[start:start + chunk].to(self.device), bg)
+                for start in range(0, rays_o.shape[0], chunk)]
         return {k: torch.cat([o[k] for o in outs]).cpu().numpy() for k in outs[0]}
+
+    def _render_chunk(self, params, rays_o, rays_d, bg):
+        return render_nerf_eval(params, self.spec, self.grid_state.bitfield, rays_o, rays_d,
+                                self.eval_settings, bg)
 
     def eval_step_full(self, data, bg_color=None):
         out = self.render_image(data["rays_o"], data["rays_d"], bg_color)
@@ -365,12 +393,7 @@ class Trainer:
                 self.log("[INFO] no checkpoint found, starting fresh")
                 return
         data = ckpt_lib.load_checkpoint(path)
-        with torch.no_grad():
-            for dst, src in zip(param_list(self.params), param_list(data["params"])):
-                dst.copy_(src)
-            ema_src = data.get("ema_params", data["params"])
-            for dst, src in zip(param_list(self.ema_params), param_list(ema_src)):
-                dst.copy_(src)
+        self._set_params(data["params"], data.get("ema_params"))
         if model_only:
             self.log(f"[INFO] loaded model from {path}")
             return

@@ -14,9 +14,12 @@ import pytest
 import torch
 
 from palettenerf_torch.config import Config
+from palettenerf_torch.models.mlp import init_mlp, param_leaves
 from palettenerf_torch.models.nerf import NeRFSpec, init_nerf, param_list
+from palettenerf_torch.models.palette import FROZEN, PaletteSpec, init_palette
 from palettenerf_torch.ops import hashgrid_fast, scatter, window_gather
 from palettenerf_torch.ops.hashgrid import HashGridSpec
+from palettenerf_torch.train.palette_trainer import PaletteTrainer
 from palettenerf_torch.train.trainer import Trainer
 from torch_support import cuda_device  # noqa: F401  (fixture)
 
@@ -191,6 +194,101 @@ def test_train_step_on_card_matches_cpu(cuda_device, tmp_path):
     assert loss_g == pytest.approx(loss_c, rel=1e-5)
     for a, b in zip(g_c, g_g):
         assert float((a - b).abs().max()) <= 1e-2 * float(a.abs().max())
+
+
+PAL_KW = dict(bound=1.0, log2_hashmap_size=14, grid_levels=8)
+
+
+def _palette_setup():
+    """A small palette field with lively tables, a color on the clamp's bound and hist
+    weights; rays, pixels and every draw of one step. All on the CPU, from one seed."""
+    cfg = Config(O=True, fp16=True, grid_size=32, num_rays=512, max_steps=256,
+                 train_samples_per_ray=32, iters=100, use_initialization_from_rgbxy=True,
+                 **PAL_KW)
+    spec = PaletteSpec.build(num_basis=4, fp16=True, **PAL_KW)
+    gen = torch.Generator().manual_seed(2)
+    params = init_palette(spec, gen)
+    for name in ("encoder", "encoder_palette"):
+        params[name].uniform_(-4, 4, generator=gen)
+    params["sigma_net"][-1][:, 0] *= 8.0
+    params["omega_net"] = init_mlp([spec.geo_feat_dim, 4], gen)
+    params["omega_net"][0] *= 8.0
+    params["basis_color"] = torch.tensor([[1.0, 0.2, 0.1], [0.1, 0.8, 0.3], [0.2, 0.3, 0.9],
+                                          [0.8, 0.8, 0.2]])
+    params["basis_color_origin"] = params["basis_color"] - 0.01
+    hist = torch.rand((32, 32, 32, 4), generator=gen)
+    params["hist_weights"] = hist / hist.sum(-1, keepdim=True)
+    n, S = cfg.num_rays, cfg.train_samples_per_ray
+    o = torch.randn((n, 3), generator=gen)
+    o = o / o.norm(dim=-1, keepdim=True) * 2.0
+    d = -o + 0.5 * torch.randn((n, 3), generator=gen)
+    d = d / d.norm(dim=-1, keepdim=True)
+    draws = [torch.rand(shape, generator=gen) for shape in ((n, 4), (n, 3), (n,), (n * S, 3))]
+    return cfg, spec, params, (o, d, *draws)
+
+
+def _palette_trainer(cfg, spec, params, dev, tmp_path, smooth=True):
+    tr = PaletteTrainer("t", cfg, spec, params=params, workspace=str(tmp_path),
+                        use_checkpoint="scratch", mute=True, device=dev)
+    tr.grid_state = tr.grid_state._replace(bitfield=torch.full_like(tr.grid_state.bitfield, 255))
+    tr.freeze_basis_color, tr.require_smooth_loss = False, smooth
+    tr.lambda_palette = cfg.lambda_palette
+    return tr
+
+
+def _palette_step(tr, batch):
+    o, d, img, bg, noise, jit_u = (t.to(tr.device) for t in batch)
+    return tr.train_step(o, d, img, bg=bg, noise=noise, jit_u=jit_u)
+
+
+def test_palette_train_step_on_card_matches_cpu(cuda_device, tmp_path):
+    """Smooth loss on, colors unfrozen, hist weights present: loss and every gradient;
+    the scatter kernel once per ``encoder_palette`` backward and never for ``encoder``."""
+    cfg, spec, params, batch = _palette_setup()
+    out = []
+    for dev in ("cpu", cuda_device):
+        tr = _palette_trainer(cfg, spec, params, dev, tmp_path)
+        before = scatter.scatter_add.launches
+        loss, _ = _palette_step(tr, batch)
+        launched = scatter.scatter_add.launches - before
+        fixed = param_leaves({k: tr.params[k] for k in ("encoder", "sigma_net")})
+        assert all(p.grad is None for p in fixed)
+        moving = param_leaves(tr.params, skip=("encoder", "sigma_net", "encoder_clip") + FROZEN)
+        out.append((float(loss), [p.grad.cpu() for p in moving], launched))
+    (loss_c, g_c, n_c), (loss_g, g_g, n_g) = out
+    assert (n_c, n_g) == (0, 2)   # the samples and their jittered copies
+    assert loss_g == pytest.approx(loss_c, rel=1e-5)
+    for a, b in zip(g_c, g_g):
+        assert float(a.abs().max()) > 0
+        assert float((a - b).abs().max()) <= 1e-2 * float(a.abs().max())
+    torch.cuda.synchronize()
+    scatter.check_refused()
+
+
+def test_palette_train_step_launches_one_scatter_without_smooth_loss(cuda_device, tmp_path):
+    cfg, spec, params, batch = _palette_setup()
+    tr = _palette_trainer(cfg, spec, params, cuda_device, tmp_path, smooth=False)
+    before = scatter.scatter_add.launches
+    _palette_step(tr, batch)
+    assert scatter.scatter_add.launches == before + 1
+
+
+def test_palette_train_step_makes_no_host_sync(cuda_device, tmp_path):
+    """After a first step (kernel build, allocator, cached constants) a palette train step
+    with every draw made on the device reads nothing back: PyTorch's sync debug mode
+    turns any synchronising call into an error. The epoch's loss read is outside."""
+    cfg, spec, params, batch = _palette_setup()
+    tr = _palette_trainer(cfg, spec, params, cuda_device, tmp_path)
+    o, d, img = (t.to(cuda_device) for t in batch[:3])
+    tr.train_step(o, d, img)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, _ = tr.train_step(o, d, img)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(loss))
+    scatter.check_refused()
 
 
 @pytest.mark.parametrize("rows", [1, 8, 32])
