@@ -43,9 +43,22 @@ the training views (``--extract_palette --extract_via_sweep``), then 300 palette
    against its image (color and opacity), the sweep against ``render_baked``, and the
    edit checks.
 
+10. edit reference: a small palette field on the card and on the CPU from the same
+    weights: ``EditingSession`` frames (plain, region recolor, weight mode, dials,
+    stylizer on) by PSNR, a ``fit_stylizer`` solve (each leaf, relative) and one palette
+    GUI step (loss, relative).
+11. edit main path: the palette workspace of phase 7, loaded as ``main_palette --test``
+    loads it, in an ``EditingSession`` at the ``--gui`` defaults (960x540, radius 5,
+    fovy 50): the interaction sequence of ``scripts/record_edit_session.py`` from test
+    view 0 (orbit, pick -> spatial region, weight mode, two recolors, reset, the two
+    dials, one correspondence -> a 150-step stylizer fit, style off), 4 paced frames
+    (``render_dynamic``, 100 ms budget) and a 16-step ``train_burst`` on the training
+    split; then ``save_mesh(256, 10)`` of the stage-1 trainer of phase 5 (``main_nerf``'s
+    tail), with the PLY's checks.
+
 Launch counts are zeroed just before each main path and read just after; every kernel
-of the train and palette paths must have launched there (the serve path runs no kernel
-of its own).
+of the train, palette and edit paths must have launched there (the serve path runs no
+kernel of its own; on the edit path ``scatter_add`` launches in the training burst only).
 The line before the last carries the card's name and power limit; before it, one JSON
 line lists every kernel with its numbers. The last line is the result object.
 Exits non-zero, printing no result, without a CUDA device or outside a checkout.
@@ -90,6 +103,10 @@ SERVE_COLOR_PSNR_FLOOR = 23.0  # sweep frame of test view 0 vs its image, on the
 SWEEP_VS_BAKED_FLOOR = 26.0  # sweep vs render_baked, the threshold of tests/test_sweep.py
 BAKE_RTOL, BAKE_ATOL = 1e-4, 1e-5  # card vs CPU bake: f32 sums in another order
 SWEEP_CARD_PSNR = 40.0     # card vs CPU sweep frame, bf16 shade (rounding flips)
+EDIT_CARD_PSNR = 100.0     # card vs CPU EditingSession frames (f32 throughout): set from the
+#                            first card run (119.80 dB for every frame) with ~20 dB margin
+STYLIZER_RTOL = 1e-4       # card vs CPU stylizer leaves after 20 Adam steps, of each leaf's
+#                            max (first card run: 1.2e-07), as tests/test_torch_gui.py holds JAX
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 SM_CLOCK_HZ = 1.7e9        # roughly; only sizes the head start of time_ms
@@ -468,7 +485,7 @@ def phase_main_path(torch, dev):
         raise AssertionError(f"render shape {out['image'].shape}")
     if not val_psnr > PSNR_FLOOR:
         raise AssertionError(f"validation PSNR {val_psnr:.3f} dB <= floor {PSNR_FLOOR}")
-    return launches, phase_path_stream(torch, trainer, train_ds), train_ds
+    return launches, phase_path_stream(torch, trainer, train_ds), train_ds, trainer
 
 
 def phase_path_stream(torch, trainer, train_ds):
@@ -892,6 +909,232 @@ def phase_serve(torch, dev, ckpt):
     return launches
 
 
+def phase_edit_reference(torch, dev):
+    """A 4-level, 2^13-row palette field (P = 4) on the card and on the CPU from the same
+    weights: EditingSession frames by PSNR (the pick, the correspondences and the
+    stylizer of the frame are the CPU's), a 20-step stylizer fit (each leaf, relative to
+    its largest entry), then one palette GUI step (smooth loss on, colors unfrozen) from
+    the same batch and draws (loss, relative)."""
+    import numpy as np
+
+    from palettenerf_torch.config import Config
+    from palettenerf_torch.gui import EditingSession, fit_stylizer
+    from palettenerf_torch.models.palette import PaletteSpec
+    from palettenerf_torch.render.palette_renderer import StylizerParams
+    from palettenerf_torch.train.palette_trainer import PaletteTrainer
+
+    kw = dict(bound=1.0, log2_hashmap_size=13, grid_levels=4)
+    cfg = Config(O=True, fp16=True, grid_size=32, num_rays=512, max_steps=128,
+                 train_samples_per_ray=32, infer_samples_per_ray=64, iters=100, **kw)
+    spec = PaletteSpec.build(num_basis=4, fp16=True, **kw)
+    gen = torch.Generator().manual_seed(8)
+    params = _random_palette_params(torch, spec, gen)
+    hist = torch.rand((32, 32, 32, 4), generator=gen)
+    params["hist_weights"] = hist / hist.sum(-1, keepdim=True)
+    n, S = cfg.num_rays, cfg.train_samples_per_ray
+    o = torch.randn((n, 3), generator=gen)
+    o = o / o.norm(dim=-1, keepdim=True) * 2.0
+    d = -o + 0.5 * torch.randn((n, 3), generator=gen)
+    d = d / d.norm(dim=-1, keepdim=True)
+    batch = {"rays_o": o.numpy(), "rays_d": d.numpy(),
+             "images": torch.rand((n, 4), generator=gen).numpy()}
+    draws = {k: torch.rand(shape, generator=gen)
+             for k, shape in (("bg", (n, 3)), ("noise", (n,)), ("jit_u", (n * S, 3)))}
+    rng = np.random.default_rng(8)
+    res, shared = {}, {}
+    for device in ("cpu", dev):
+        tr = PaletteTrainer("ref", cfg, spec, params=params,
+                            workspace=os.path.join(WORKSPACE, "edit_reference"),
+                            use_checkpoint="scratch", mute=True, device=device)
+        tr.grid_state = tr.grid_state._replace(
+            bitfield=torch.full_like(tr.grid_state.bitfield, 255))
+        sess = EditingSession(tr, W=64, H=64, radius=2.6)
+        frames = {"plain": sess.render()}
+        if device == "cpu":
+            ys, xs = np.nonzero(frames["plain"]["weights_sum"] > 0.5)
+            shared["xyz"] = sess.pick(int(xs[len(xs) // 2]), int(ys[len(xs) // 2]))["xyz"]
+            shared["pix"] = [(int(xs[i]), int(ys[i]))
+                             for i in rng.choice(len(xs), 8, replace=False)]
+            shared["tgt"] = rng.uniform(size=(8, 3))
+        sess.set_region(mean_xyz=shared["xyz"], std_xyz=0.05)
+        sess.recolor(1, [0.9, 0.1, 0.1])
+        frames["region recolor"] = sess.render()
+        sess.set_weights(1.0, 0.0)
+        sess.set_region(mean_xyz=shared["xyz"], std_xyz=0.3, weight_mode=True)
+        frames["weight mode"] = sess.render()
+        sess.set_region()
+        sess.reset_colors()
+        sess.set_weights(0.3, 0.5)
+        frames["dials"] = sess.render()
+        sess.set_weights(1.0, 1.0)
+        for (x, y), t in zip(shared["pix"], shared["tgt"]):
+            sess.add_correspondence(x, y, t)
+        ro, rd, tgt = (np.stack(c) for c in zip(*sess._corr))
+        sty = fit_stylizer(tr, ro, rd, tgt, iters=20)
+        if device == "cpu":
+            shared["sty"] = sty
+        sess.set_stylizer(StylizerParams(*(t.to(tr.device) for t in shared["sty"])))
+        frames["stylizer on"] = sess.render()
+        tr.freeze_basis_color, tr.require_smooth_loss = False, True
+        tr.lambda_palette = cfg.lambda_palette
+        loss = float(tr._gui_train_step(batch, **{k: v.to(tr.device) for k, v in draws.items()}))
+        res[str(device)] = (frames, [t.cpu() for t in sty], loss)
+    (fc, sc, lc), (fg, sg, lg) = res["cpu"], res[str(dev)]
+    ps = {name: min(_psnr(torch, torch.from_numpy(fg[name][k]), torch.from_numpy(fc[name][k]))
+                    for k in ("image", "weights_sum", "depth_origin", "basis_acc"))
+          for name in fc}
+    rel_sty = max(float((a - b).abs().max()) / float(a.abs().max()) for a, b in zip(sc, sg))
+    moved = {name: float(np.abs(fc[name]["image"] - fc["plain"]["image"]).max())
+             for name in fc if name != "plain"}
+    log("edit reference: card vs CPU PSNR (lowest of image, weights_sum, depth_origin, "
+        "basis_acc) " + ", ".join(f"{k} {v:.2f} dB" for k, v in ps.items())
+        + f"; stylizer leaves {rel_sty:.3e} of their largest entry; GUI step loss cpu "
+          f"{lc:.7f} gpu {lg:.7f}; each edit moves the CPU frame by "
+        + ", ".join(f"{k} {v:.3f}" for k, v in moved.items()))
+    if min(ps.values()) < EDIT_CARD_PSNR or min(moved.values()) <= 1e-3:
+        raise AssertionError(f"edit reference: frames on the card vs the CPU {ps} dB (floor "
+                             f"{EDIT_CARD_PSNR}), edits moved the frame by {moved}")
+    if rel_sty > STYLIZER_RTOL or abs(lc - lg) > 1e-5 * abs(lc):
+        raise AssertionError(f"edit reference: stylizer leaves {rel_sty} apart (tolerance "
+                             f"{STYLIZER_RTOL}), GUI step loss cpu {lc} gpu {lg}")
+
+
+def phase_edit(torch, dev, stage1):
+    """The editing main path at full width on the palette workspace phase 7 trained, then
+    the stage-1 mesh export. Returns the launch counts of the edit path."""
+    import numpy as np
+
+    from palettenerf_torch import main_palette
+    from palettenerf_torch.data.palette_provider import PaletteDataset
+    from palettenerf_torch.gui import EditingSession
+    from palettenerf_torch.models.mlp import param_leaves
+    from palettenerf_torch.ops import scatter
+    from palettenerf_torch.utils.mcubes import read_ply
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    # -------------------------------------------------------------- main path
+    t0 = time.perf_counter()
+    cfg, trainer = main_palette.load_test_trainer(PALETTE_TRAIN_ARGS + ["--test"], device=dev)
+    sess = EditingSession(trainer, W=cfg.W, H=cfg.H, radius=cfg.radius, fovy=cfg.fovy)
+    test_ds = PaletteDataset(cfg, type="test")
+    train_ds = PaletteDataset(cfg, type="train")
+    load_s = time.perf_counter() - t0
+    frames, secs = {}, {}
+
+    def snap(name):
+        t = time.perf_counter()
+        frames[name] = sess.render()
+        secs[name] = time.perf_counter() - t
+        return frames[name]
+
+    sess.jump_to_pose(test_ds.poses, 0)
+    snap("test view 0")
+    sess.cam.orbit(40, 8)
+    plain = snap("orbit")
+    ys, xs = np.nonzero(plain["weights_sum"] > 0.5)
+    x, y = int(xs[len(xs) // 2]), int(ys[len(xs) // 2])
+    pick = sess.pick(x, y)
+    sess.set_region(mean_xyz=pick["xyz"], std_xyz=0.35)
+    sess.recolor(0, [0.15, 0.85, 0.25])
+    snap("region recolor")
+    sess.set_weights(1.0, 0.0)
+    sess.set_region(mean_xyz=pick["xyz"], std_xyz=0.35, weight_mode=True)
+    snap("weight mode")
+    sess.set_weights(1.0, 1.0)
+    sess.set_region()
+    snap("recolor basis 0")
+    sess.recolor(min(1, sess.num_basis - 1), [0.2, 0.3, 0.95])
+    snap("recolor basis 1")
+    sess.reset_colors()
+    snap("reset colors")
+    sess.set_weights(0.0, 1.0)
+    snap("offsets dial 0")
+    sess.set_weights(1.0, 0.0)
+    snap("view-dep dial 0")
+    sess.set_weights(1.0, 1.0)
+    snap("dials back")
+    cx, cy = int(xs[len(xs) // 3]), int(ys[len(xs) // 3])
+    target = np.array([0.9, 0.6, 0.1], np.float32)
+    sess.add_correspondence(cx, cy, target)
+    t = time.perf_counter()
+    sess.optimize_style(iters=150)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    snap("stylizer on")
+    sess.use_style(False)
+    snap("style off")
+    paced = [sess.render_dynamic(target_ms=100.0) for _ in range(4)]
+    torch.cuda.synchronize()
+    steps0 = trainer.global_step
+    t = time.perf_counter()
+    burst = sess.train_burst(train_ds, steps=16)
+    torch.cuda.synchronize()
+    burst_s = time.perf_counter() - t
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    # -------------------------------------------------------------- checks
+    scatter.check_refused()
+    shape = (cfg.H, cfg.W, 3)
+    moved = {k: float(np.abs(f["image"] - plain["image"]).max()) for k, f in frames.items()
+             if k not in ("test view 0", "orbit")}
+    gray = float(np.abs(frames["weight mode"]["image"]
+                        - frames["weight mode"]["image"][..., :1]).max())
+    before = float(np.abs(plain["image"][cy, cx] - target).max())
+    after = float(np.abs(frames["stylizer on"]["image"][cy, cx] - target).max())
+    expect = 16 * (2 if trainer.require_smooth_loss else 1)
+    log(f"edit main path: {cfg.W}x{cfg.H}, P = {sess.num_basis}, load {load_s:.1f} s; s per "
+        "exact frame " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
+    log("edit main path: |frame - plain| " + ", ".join(f"{k} {v:.3g}" for k, v in moved.items())
+        + f"; weight-mode frame off gray by {gray:.2e}; stylized pixel ({cx}, {cy}) off its "
+          f"target by {before:.4f} before, {after:.4f} after")
+    log("edit main path: render_dynamic (100 ms budget) "
+        + ", ".join(f"{p['frame_ms']:.1f} ms -> x{p['downscale']:.3f}" for p in paced)
+        + f" (spp {[p['spp'] for p in paced]}); stylizer fit (150 steps, 1 correspondence) "
+          f"{fit_s:.3f} s; train burst {16 / burst_s:.2f} steps/s (loss {burst['loss']:.5f}, "
+          f"lr {burst['lr']:.3e}); scatter_add launches {launches['scatter_add']} "
+          f"({expect} expected); peak memory {peak_gb:.2f} GiB")
+    if any(f["image"].shape != shape or not np.isfinite(f["image"]).all()
+           for f in frames.values()):
+        raise AssertionError(f"edit frames: shapes {[f['image'].shape for f in frames.values()]}")
+    if not len(xs) > 1000:
+        raise AssertionError(f"the orbit frame has {len(xs)} foreground pixels")
+    back = ("reset colors", "dials back", "style off")
+    if max(moved[k] for k in back) > 1e-6 or min(
+            v for k, v in moved.items() if k not in back) <= 1e-3:
+        raise AssertionError(f"edits must move the frame and {back} give it back: {moved}")
+    if gray > 1e-5 or not after < before:
+        raise AssertionError(f"weight mode off gray by {gray}; stylized pixel {before} -> {after}")
+    if [p["spp"] for p in paced][0] != 1 or paced[-1]["downscale"] >= 1.0:
+        raise AssertionError(f"render_dynamic: {[(p['spp'], p['downscale']) for p in paced]}")
+    if trainer.global_step != steps0 + 16 or not math.isfinite(burst["loss"]):
+        raise AssertionError(f"train burst: {trainer.global_step - steps0} steps, "
+                             f"loss {burst['loss']}")
+    if launches["scatter_add"] != expect:
+        raise AssertionError(f"scatter_add launched {launches['scatter_add']} times in the "
+                             f"16-step burst ({expect} expected)")
+    if not all(bool(torch.isfinite(p).all()) for p in param_leaves(trainer.params)):
+        raise AssertionError("non-finite parameters after the burst")
+    del sess, trainer, frames, paced
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------------------------- main_nerf's tail
+    path = stage1.save_mesh(resolution=256, threshold=10)
+    st = stage1.mesh_stats
+    verts, faces = read_ply(path)
+    log(f"mesh: {st['vertices']} vertices, {st['faces']} faces in "
+        f"{st['lattice_s'] + st['host_s']:.2f} s (density lattice 256^3 on the card "
+        f"{st['lattice_s']:.3f} s, marching tetrahedra + PLY on the host {st['host_s']:.2f} s) "
+        f"-> {os.path.relpath(path, ROOT)} ({os.path.getsize(path) / 2 ** 20:.1f} MiB)")
+    if not len(faces) > 1000 or faces.min() < 0 or faces.max() >= len(verts):
+        raise AssertionError(f"mesh: {len(verts)} vertices, {len(faces)} faces, indices "
+                             f"{faces.min(initial=0)}..{faces.max(initial=0)}")
+    if not np.isfinite(verts).all() or np.abs(verts).max() > 1.0:
+        raise AssertionError(f"mesh vertices outside [-1, 1]: {np.abs(verts).max()}")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "palettenerf_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -932,14 +1175,18 @@ def main() -> int:
     kernels = phase_kernels(torch, dev)
     wg_entry = phase_window_gather(torch, dev)
     phase_reference(torch, dev)
-    train_launches, path_times, train_ds = phase_main_path(torch, dev)
+    train_launches, path_times, train_ds, stage1 = phase_main_path(torch, dev)
     phase_palette_reference(torch, dev)
     palette_launches, palette_ws = phase_palette(torch, dev, train_ds)
     del train_ds
+    phase_edit_reference(torch, dev)
+    edit_launches = phase_edit(torch, dev, stage1)
+    del stage1
     for k in kernels:
-        k["path"] = "train, palette"
+        k["path"] = "train, palette, edit"
         k["launches"] = train_launches[k["name"]]
         k["palette_launches"] = palette_launches[k["name"]]
+        k["edit_launches"] = edit_launches[k["name"]]
         k.update(path_times)
     kernels.append(wg_entry)
     phase_serve_reference(torch, dev)

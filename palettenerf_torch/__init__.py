@@ -9,12 +9,16 @@ counterpart is easy to find:
   models/  stage-1 NeRF and PaletteNeRF (eval) networks as functions on a parameter dict
   render/  NeRF train/eval renderers; palette edits, baking and the shear-warp sweep
   data/    dataset provider, PNG codec, ray generation
-  train/   trainer, checkpoints (incl. the JAX package's pickles), metrics
-  utils/   color conversions
+  train/   trainer (with the GUI hooks and the mesh export), checkpoints (incl. the
+           JAX package's pickles), metrics
+  gui/     orbit camera, the headless EditingSession, the optional DearPyGui front-ends
+  utils/   color conversions, marching tetrahedra + PLY
 
 Ported so far: the stage-1 Instant-NGP train step with ``-O`` (bf16 hash-grid
-backward through the CUDA scatter kernel), the density-grid refresh and the exact
-eval render (``python -m palettenerf_torch.main_nerf``); serving — a trained palette
+backward through the CUDA scatter kernel), the density-grid refresh, the exact
+eval render and the mesh export (``python -m palettenerf_torch.main_nerf``); palette
+extraction and PaletteNeRF training (``python -m palettenerf_torch.main_palette``);
+interactive editing (``palettenerf_torch.gui``); serving — a trained palette
 checkpoint baked into dense volumes, frames by the shear-warp sweep with live recolors
 (``python -m palettenerf_torch.main_serve``); and the window-gather kernel.
 """

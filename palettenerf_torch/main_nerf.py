@@ -4,7 +4,11 @@
         --bg_radius 0 --density_thresh 10 --iters 8000 --workspace proc_toys
 
 Same flags as the JAX package's ``main_nerf.py`` (flags of paths that are not ported
-yet are accepted and raise). Runs on CUDA; ``main(argv, device="cpu")`` runs on the CPU.
+yet are accepted and raise). Both branches end with the mesh export, ``save_mesh(256,
+10)`` -> ``<workspace>/meshes/ngp_<epoch>.ply``; ``--gui`` opens the DearPyGui viewer
+instead (``palettenerf_torch.gui.NeRFGUI``; without the ``dearpygui`` package it raises,
+and ``palettenerf_torch.gui.EditingSession`` is the headless way in). Runs on CUDA;
+``main(argv, device="cpu")`` runs on the CPU.
 """
 
 from __future__ import annotations
@@ -121,7 +125,7 @@ def resolve_workspace(root: str, workspace: str, version_id: int, test: bool) ->
     return os.path.join(workspace_dir, f"version_{(1 - int(test)) + vid}")
 
 
-def main(argv=None, device="cuda"):
+def main(argv=None, device="cuda", mesh_resolution: int = 256):
     from .config import Config
     from .data.provider import NeRFDataset
     from .models.nerf import NeRFSpec
@@ -145,11 +149,21 @@ def main(argv=None, device="cuda"):
     if cfg.test:
         trainer = Trainer("ngp", cfg, spec, workspace=workspace,
                           use_checkpoint=cfg.ckpt, device=device)
+        if cfg.gui:
+            from .gui.dpg_gui import NeRFGUI
+
+            NeRFGUI(cfg, trainer, NeRFDataset(cfg, type="traintest")).render()
+            return trainer
     else:
         train_ds = NeRFDataset(cfg, type="train")
         valid_ds = NeRFDataset(cfg, type="val", downscale=1)
         trainer = Trainer("ngp", cfg, spec, workspace=workspace, use_checkpoint=cfg.ckpt,
                           ema_decay=0.95, eval_interval=cfg.eval_interval, device=device)
+        if cfg.gui:
+            from .gui.dpg_gui import NeRFGUI
+
+            NeRFGUI(cfg, trainer, train_ds).render()
+            return trainer
         max_epoch = int(np.ceil(cfg.iters / len(train_ds)))
         trainer.train(train_ds, valid_ds, max_epoch)
 
@@ -157,6 +171,7 @@ def main(argv=None, device="cuda"):
     if test_ds.has_gt:
         trainer.evaluate_one_epoch(test_ds)
     trainer.test(test_ds)
+    trainer.save_mesh(resolution=mesh_resolution, threshold=10)
     return trainer
 
 

@@ -172,14 +172,12 @@ def resolve_workspaces(opt):
     return nerf_path, palette_workspace, workspace
 
 
-def main(argv=None, device="cuda"):
+def _setup(argv):
+    """Parse ``argv``, resolve the workspaces and read the extracted palette
+    (main_palette.py:114-141): (cfg, (nerf_path, palette_workspace, workspace),
+    (palette, hist_weights))."""
     from .config import Config
-    from .data.palette_provider import PaletteDataset
-    from .models.nerf import NeRFSpec
-    from .models.palette import PaletteSpec
-    from .train.metrics import PSNRMeter, SparsityMeter, SSIMMeter, TVMeter
-    from .train.palette_trainer import PaletteTrainer
-    from .train.trainer import Trainer, check_ported
+    from .train.trainer import check_ported
 
     opt = build_parser().parse_args(argv)
     cfg = Config.from_args(opt)
@@ -187,31 +185,80 @@ def main(argv=None, device="cuda"):
     np.random.seed(cfg.seed)
     torch.manual_seed(cfg.seed)
 
-    nerf_path, palette_workspace, workspace = resolve_workspaces(opt)
-
-    extracted_palette = extracted_hist = None
+    paths = resolve_workspaces(opt)
+    extracted = (None, None)
     if cfg.use_initialization_from_rgbxy and not cfg.extract_palette:
-        pal_file = os.path.join(palette_workspace, "palette.npz")
+        pal_file = os.path.join(paths[1], "palette.npz")
         if not os.path.exists(pal_file):
             raise FileNotFoundError(f"Extracted palette missing: {pal_file}")
-        extracted_palette = np.load(pal_file)["palette"]
-        extracted_hist = np.load(os.path.join(palette_workspace, "hist_weights.npz"))["hist_weights"]
-        cfg = cfg.replace(num_basis=int(extracted_palette.shape[0]))
+        extracted = (np.load(pal_file)["palette"],
+                     np.load(os.path.join(paths[1], "hist_weights.npz"))["hist_weights"])
+        cfg = cfg.replace(num_basis=int(extracted[0].shape[0]))
     print(cfg)
+    return cfg, paths, extracted
 
-    grid_kw = dict(log2_hashmap_size=cfg.log2_hashmap_size, grid_levels=cfg.grid_levels,
-                   grid_level_dim=cfg.grid_level_dim, gridtype=cfg.gridtype)
+
+def _grid_kw(cfg) -> dict:
+    return dict(log2_hashmap_size=cfg.log2_hashmap_size, grid_levels=cfg.grid_levels,
+                grid_level_dim=cfg.grid_level_dim, gridtype=cfg.gridtype)
+
+
+def _palette_spec(cfg):
+    from .models.palette import PaletteSpec
+
+    return PaletteSpec.build(
+        bound=cfg.bound, bg_radius=cfg.bg_radius, num_basis=cfg.num_basis,
+        pred_clip=cfg.pred_clip, clip_dim=cfg.clip_dim, color_space=cfg.color_space,
+        smooth_sigma_xyz=cfg.smooth_sigma_xyz, smooth_sigma_color=cfg.smooth_sigma_color,
+        smooth_sigma_clip=cfg.smooth_sigma_clip, fp16=cfg.fp16_enabled,
+        fast_grad=cfg.fast_grad, stochastic_trilerp=cfg.stochastic_trilerp,
+        grad_levels=cfg.grad_levels, **_grid_kw(cfg),
+    )
+
+
+def _test_trainer(cfg, workspace: str, extracted, device):
+    from .train.metrics import PSNRMeter, SparsityMeter, SSIMMeter, TVMeter
+    from .train.palette_trainer import PaletteTrainer
+
+    metrics = [PSNRMeter(), SSIMMeter(), TVMeter(), SparsityMeter()]
+    trainer = PaletteTrainer("palette", cfg, _palette_spec(cfg), workspace=workspace,
+                             metrics=metrics, use_checkpoint=cfg.ckpt, nerf_path=None,
+                             device=device)
+    if trainer.params.get("hist_weights") is None and extracted[1] is not None:
+        trainer.initialize_palette(*extracted)
+    return trainer
+
+
+def load_test_trainer(argv=None, device="cuda"):
+    """The PaletteTrainer that ``--test`` (and ``--test --gui``) runs on, loaded as
+    ``main`` loads it: (cfg, trainer). ``argv`` is ``main``'s, ``--test`` included."""
+    cfg, paths, extracted = _setup(argv)
+    if not cfg.test:
+        raise ValueError("load_test_trainer loads the --test trainer: pass --test")
+    return cfg, _test_trainer(cfg, paths[2], extracted, device)
+
+
+def main(argv=None, device="cuda"):
+    from .data.palette_provider import PaletteDataset
+    from .models.nerf import NeRFSpec
+    from .models.palette import PaletteSpec
+    from .train.metrics import PSNRMeter
+    from .train.palette_trainer import PaletteTrainer
+    from .train.trainer import Trainer
+
+    cfg, (nerf_path, palette_workspace, workspace), extracted = _setup(argv)
     if cfg.extract_palette:
         # stage 2: render the training views with the plain NeRF and extract
         nerf_spec = NeRFSpec.build(bound=cfg.bound, bg_radius=cfg.bg_radius,
-                                   fp16=cfg.fp16_enabled, **grid_kw)
+                                   fp16=cfg.fp16_enabled, **_grid_kw(cfg))
         nerf_trainer = Trainer("ngp", cfg, nerf_spec, workspace=nerf_path,
                                use_checkpoint="latest", ema_decay=None, device=device)
         pal_trainer = PaletteTrainer(
             "palette", cfg,
             PaletteSpec.build(bound=cfg.bound, bg_radius=cfg.bg_radius,
                               num_basis=cfg.num_basis, pred_clip=cfg.pred_clip,
-                              clip_dim=cfg.clip_dim, color_space=cfg.color_space, **grid_kw),
+                              clip_dim=cfg.clip_dim, color_space=cfg.color_space,
+                              **_grid_kw(cfg)),
             workspace=palette_workspace, use_checkpoint="scratch", nerf_path=None,
             device=device,
         )
@@ -222,32 +269,24 @@ def main(argv=None, device="cuda"):
                                     via_sweep=cfg.extract_via_sweep)
         return pal_trainer
 
-    spec = PaletteSpec.build(
-        bound=cfg.bound, bg_radius=cfg.bg_radius, num_basis=cfg.num_basis,
-        pred_clip=cfg.pred_clip, clip_dim=cfg.clip_dim, color_space=cfg.color_space,
-        smooth_sigma_xyz=cfg.smooth_sigma_xyz, smooth_sigma_color=cfg.smooth_sigma_color,
-        smooth_sigma_clip=cfg.smooth_sigma_clip, fp16=cfg.fp16_enabled,
-        fast_grad=cfg.fast_grad, stochastic_trilerp=cfg.stochastic_trilerp,
-        grad_levels=cfg.grad_levels, **grid_kw,
-    )
-
     if cfg.test:
+        trainer = _test_trainer(cfg, workspace, extracted, device)
+        if cfg.gui:
+            from .gui.dpg_gui import PaletteGUI
+
+            PaletteGUI(cfg, trainer, train_loader=PaletteDataset(cfg, type="traintest")).render()
+            return trainer
         if cfg.video:
             raise NotImplementedError("--video output is not ported (it needs cv2)")
-        metrics = [PSNRMeter(), SSIMMeter(), TVMeter(), SparsityMeter()]
-        trainer = PaletteTrainer("palette", cfg, spec, workspace=workspace, metrics=metrics,
-                                 use_checkpoint=cfg.ckpt, nerf_path=None, device=device)
-        if trainer.params.get("hist_weights") is None and extracted_hist is not None:
-            trainer.initialize_palette(extracted_palette, extracted_hist)
     else:
-        trainer = PaletteTrainer("palette", cfg, spec, workspace=workspace,
+        trainer = PaletteTrainer("palette", cfg, _palette_spec(cfg), workspace=workspace,
                                  metrics=[PSNRMeter()], use_checkpoint=cfg.ckpt,
                                  nerf_path=nerf_path, ema_decay=0.95,
                                  eval_interval=cfg.eval_interval, device=device)
         if trainer.global_step == 0:
             # fresh run only: a resumed checkpoint already carries the initialized
             # palette and the Adam / EMA state that initialize_palette would reset
-            trainer.initialize_palette(extracted_palette, extracted_hist)
+            trainer.initialize_palette(*extracted)
 
         train_ds = PaletteDataset(cfg, type="train")
         valid_ds = PaletteDataset(cfg, type="val", downscale=1)

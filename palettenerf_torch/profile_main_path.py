@@ -7,13 +7,18 @@
   palette workspace ``--palette_ws`` on the stage-1 workspace ``--nerf_ws``;
 - serve: one 800x800 sweep frame (u_res 400) of a palette checkpoint's 256^3 bake,
   plain and with basis 0 recolored, after the serve CLI's own warm-up frames;
-  ``--serve_ckpt deploy/proc_toys`` serves the committed trained checkpoint.
+  ``--serve_ckpt deploy/proc_toys`` serves the committed trained checkpoint;
+- edit: the palette workspace loaded as ``main_palette --test`` loads it, in an
+  ``EditingSession`` at the ``--gui`` defaults (960x540) from test view 0: a plain exact
+  frame, a region recolor frame, a 150-step stylizer fit on one correspondence, a
+  stylized frame and a 16-step training burst.
 
-The palette and serve parts default to the workspaces ``chip_smoke.py`` trains (full
-width), so run it first.
+The palette, serve and edit parts default to the workspaces ``chip_smoke.py`` trains
+(full width), so run it first.
 
     python -m palettenerf_torch.profile_main_path [--steps_warmup 100]
-        [--only train|palette|serve] [--serve_ckpt PATH] [--palette_ws DIR] [--nerf_ws DIR]
+        [--only train|palette|serve|edit] [--serve_ckpt PATH] [--palette_ws DIR]
+        [--nerf_ws DIR]
 
 Prints, for each window, the wall time, the summed device time of all kernels and its
 share of the wall time (busy share; one stream, so kernels do not overlap), the number
@@ -139,15 +144,45 @@ def profile_serve(a):
         _profile(f"sweep frame 800x800 u_res 400, {what}", frame)
 
 
+def profile_edit(a):
+    from . import main_palette
+    from .data.palette_provider import PaletteDataset
+    from .gui import EditingSession
+
+    version = os.path.basename(a.palette_ws).split("_")[-1]
+    argv = [ARGS[0], a.nerf_ws] + ARGS[1:] + ["--use_normalized_palette",
+                                               "--use_initialization_from_rgbxy", "--dt_gamma",
+                                               "0", "--test", "--version_id", version]
+    cfg, tr = main_palette.load_test_trainer(argv, device="cuda")
+    if tr.global_step == 0:
+        raise FileNotFoundError(f"no palette checkpoint under {a.palette_ws}")
+    sess = EditingSession(tr, W=cfg.W, H=cfg.H, radius=cfg.radius, fovy=cfg.fovy)
+    sess.jump_to_pose(PaletteDataset(cfg, type="test").poses, 0)
+    sess.render()
+    what = f"edit frame {cfg.W}x{cfg.H}"
+    _profile(f"{what}, plain", sess.render)
+    sess.set_region(mean_xyz=sess.pick(cfg.W // 2, cfg.H // 2)["xyz"], std_xyz=0.35)
+    sess.recolor(0, [0.15, 0.85, 0.25])
+    _profile(f"{what}, region recolor of basis 0", sess.render)
+    sess.reset_colors()
+    sess.set_region()
+    sess.add_correspondence(cfg.W // 2, cfg.H // 2, [0.9, 0.6, 0.1])
+    _profile("stylizer fit, 150 steps, 1 correspondence", lambda: sess.optimize_style(iters=150))
+    _profile(f"{what}, stylized", sess.render)
+    train_ds = PaletteDataset(cfg, type="train")
+    sess.train_burst(train_ds, steps=2)
+    _profile("train burst, 16 steps", lambda: sess.train_burst(train_ds, steps=16))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--steps_warmup", type=int, default=100)
-    p.add_argument("--only", choices=["train", "palette", "serve"], default=None)
+    p.add_argument("--only", choices=["train", "palette", "serve", "edit"], default=None)
     pal_ws = os.path.join(_ROOT, "results_palette", "chip_smoke", "version_1")
     p.add_argument("--serve_ckpt", default=pal_ws,
                    help="palette checkpoint or directory to serve")
     p.add_argument("--palette_ws", default=pal_ws,
-                   help="palette training workspace to resume for the palette part")
+                   help="palette training workspace to resume (palette) or load (edit)")
     p.add_argument("--nerf_ws", default=os.path.join(_ROOT, "results", "chip_smoke", "version_1"),
                    help="the stage-1 workspace it was trained on")
     a = p.parse_args(argv)
@@ -160,6 +195,8 @@ def main(argv=None):
         profile_palette(a)
     if a.only in (None, "serve"):
         profile_serve(a)
+    if a.only in (None, "edit"):
+        profile_edit(a)
 
 
 if __name__ == "__main__":

@@ -43,7 +43,7 @@ from ..config import Config
 from ..data.rays import gen_rays_torch
 from ..models.mlp import param_leaves
 from ..models.palette import (FROZEN, PaletteSpec, get_palette_weight_with_hist, init_palette,
-                              initialize_palette)
+                              initialize_palette, palette_density)
 from ..ops.occupancy import GridState
 from ..ops.scatter import check_refused
 from ..render.palette_renderer import (RegionEdit, StylizerParams, render_palette_eval,
@@ -54,6 +54,8 @@ from .trainer import Trainer
 
 class PaletteTrainer(Trainer):
     """``opt`` is a Config, ``spec`` a PaletteSpec. Runs on ``device`` (CUDA by default)."""
+
+    _field_density = staticmethod(palette_density)
 
     def __init__(
         self,
@@ -89,6 +91,7 @@ class PaletteTrainer(Trainer):
             use_checkpoint=use_checkpoint, ema_decay=ema_decay, eval_interval=eval_interval,
             max_keep_ckpt=max_keep_ckpt, mute=mute, device=device,
         )
+        self.grid_frozen = True  # stage 1's grid, never refreshed (palette/utils.py:644-646)
         # warm-start from stage 1 only on fresh runs: resuming a palette checkpoint must
         # not stomp the palette-trained color head with stage-1 weights
         if nerf_path is not None and self.global_step == 0:
@@ -165,6 +168,20 @@ class PaletteTrainer(Trainer):
 
         self._update(loss, zero_grad_for=(p["basis_color"],))
         return loss.detach(), per_ray.detach()
+
+    def _gui_train_step(self, data: dict, **draws) -> torch.Tensor:
+        """The palette-loss step from a collated batch (``train_gui``); ``draws`` (``bg``,
+        ``noise``, ``jit_u``) replace the generator's draws. Without LSeg features in the
+        batch, ``pred_clip`` is held to zeros, as in the JAX trainer."""
+        images = self._batch(data, "images")
+        gt_feat = None
+        if self.palette_spec.pred_clip:
+            gt_feat = (self._batch(data, "feat_images") if "feat_images" in data else
+                       torch.zeros((images.shape[0], self.palette_spec.clip_dim),
+                                   device=self.device))
+        loss, _ = self.train_step(self._batch(data, "rays_o"), self._batch(data, "rays_d"),
+                                  images, gt_feat=gt_feat, **draws)
+        return loss
 
     def _apply_schedule(self):
         """The schedule flags the epoch count implies (palette/utils.py:651-674)."""

@@ -13,6 +13,10 @@ Port of the ``-O`` path of ``palettenerf_tpu/train/trainer.py``:
   marked at the start of training (:442-446).
 - Training runs on device-resident images with pixels sampled and rays generated on
   the device (the counterpart of ``scan_steps`` :281-320, as a Python loop).
+- The interactive hooks (:611-747): ``train_gui`` bursts on collated host batches,
+  ``test_gui`` frames at a downscale, ``set_render_option`` for the GUI sliders,
+  ``save_view``, and ``save_mesh`` (density lattice on the device, marching tetrahedra
+  on the host).
 
 All randomness comes from one ``torch.Generator`` on the trainer's device, seeded
 with ``opt.seed``. Options of the JAX trainer that are not ported yet raise.
@@ -20,6 +24,7 @@ with ``opt.seed``. Options of the JAX trainer that are not ported yet raise.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 import time
@@ -31,7 +36,7 @@ import torch
 from .. import resolve_device
 from ..config import Config
 from ..data.png import write_png
-from ..data.rays import gen_rays_torch
+from ..data.rays import gen_rays, gen_rays_torch
 from ..models.mlp import param_leaves
 from ..models.nerf import NeRFSpec, init_nerf, nerf_density
 from ..ops.occupancy import (GridState, init_grid_state, mark_untrained_grid,
@@ -57,7 +62,6 @@ def check_ported(opt: Config) -> None:
         "patch_size > 1": opt.patch_size > 1, "random_size": opt.random_size,
         "color_space=linear": opt.color_space == "linear",
         "n_devices > 1": opt.n_devices > 1, "rand_pose": opt.rand_pose >= 0,
-        "gui": opt.gui,
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -113,6 +117,7 @@ class Trainer:
         self.epoch = 0
         self.global_step = 0
         self.stats = {"loss": [], "valid_loss": [], "results": [], "best_result": None}
+        self.grid_frozen = False  # PaletteTrainer: True (its grid is stage 1's)
 
         os.makedirs(workspace, exist_ok=True)
         self.ckpt_path = os.path.join(workspace, "checkpoints")
@@ -238,9 +243,11 @@ class Trainer:
                 torch._foreach_mul_(ema, self.ema_decay)
                 torch._foreach_add_(ema, cur, alpha=1.0 - self.ema_decay)
 
+    _field_density = staticmethod(nerf_density)
+
     def _density(self, params, pts: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():
-            return torch.cat([nerf_density(params, self.spec, c)["sigma"]
+            return torch.cat([self._field_density(params, self.spec, c)["sigma"]
                               for c in pts.split(_DENSITY_CHUNK)])
 
     def refresh_grid(self):
@@ -350,7 +357,8 @@ class Trainer:
         return result
 
     def test(self, test_ds, save_path: Optional[str] = None):
-        """Render the test split to pngs (videos and mesh export are not ported yet)."""
+        """Render the test split to pngs (no mp4: the port uses no video encoder).
+        ``main_nerf`` follows it with ``save_mesh``."""
         save_path = save_path or os.path.join(self.workspace, "results")
         t0 = time.time()
         n = 0
@@ -361,6 +369,102 @@ class Trainer:
             n += 1
         dt = time.time() - t0
         self.log(f"[test] {n} frames, total {dt:.2f}s, avg {dt / max(n, 1):.3f}s/frame")
+
+    # ------------------------------------------------------------------ GUI hooks
+
+    def train_gui(self, train_ds, step: int = 16) -> dict:
+        """One interactive burst of ``step`` optimizer steps on collated batches of
+        ``train_ds`` (reference nerf/utils.py:745-800). Returns dict(loss, lr, time)."""
+        t0 = time.time()
+        losses = []
+        it = train_ds.iter_epoch()
+        for _ in range(step):
+            try:
+                data = next(it)
+            except StopIteration:
+                it = train_ds.iter_epoch()
+                data = next(it)
+            if not self.grid_frozen and self.global_step % self.opt.update_extra_interval == 0:
+                self.refresh_grid()
+            losses.append(self._gui_train_step(data))
+            self.global_step += 1
+        loss = float(torch.stack(losses).mean())
+        check_refused()  # the host has just waited for the device
+        lr = float(self.opt.lr * 0.1 ** min(self.global_step / self.opt.iters, 1.0))
+        return {"loss": loss, "lr": lr, "time": time.time() - t0}
+
+    def _batch(self, data: dict, key: str) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(data[key], np.float32), device=self.device)
+
+    def _gui_train_step(self, data: dict, **draws) -> torch.Tensor:
+        """One optimizer step from a collated batch; returns the loss, detached.
+        ``draws`` (``bg``, ``noise``) replace the generator's draws."""
+        loss, _ = self.train_step(self._batch(data, "rays_o"), self._batch(data, "rays_d"),
+                                  self._batch(data, "images"), **draws)
+        return loss
+
+    def test_gui(self, pose, intrinsics, W: int, H: int, downscale: float = 1.0,
+                 bg_color=None) -> dict:
+        """One interactive frame at ``downscale`` of W x H (reference nerf/utils.py:
+        803-858): host numpy arrays shaped [rH, rW, ...]."""
+        rW, rH = int(W * downscale), int(H * downscale)
+        intr = np.asarray(intrinsics, np.float64) * downscale
+        ro, rd = gen_rays(np.asarray(pose, np.float32), intr, rH, rW, None)
+        out = self.render_image(ro, rd, bg_color)
+        return {k: v.reshape(rH, rW, *v.shape[1:]) for k, v in out.items()}
+
+    def set_render_option(self, **kw):
+        """Live render-settings update from the GUI sliders (``dt_gamma``, ``num_samples``,
+        ...): both settings take the values; the eval compaction schedule follows a new
+        ``num_samples``. The hierarchical march is not ported: ``march_groups > 0`` raises."""
+        if kw.pop("march_groups", 0) > 0:
+            raise NotImplementedError("not ported to palettenerf_torch yet: march_groups")
+        tkw = {k: v for k, v in kw.items() if k != "compaction_rounds"}
+        self.train_settings = dataclasses.replace(self.train_settings, **tkw)
+        if "num_samples" in kw and "compaction_rounds" not in kw:
+            kw["compaction_rounds"] = self._compaction_rounds(kw["num_samples"])
+        self.eval_settings = dataclasses.replace(self.eval_settings, **kw)
+
+    def save_view(self, pose, intrinsics, W: int, H: int, name: Optional[str] = None) -> str:
+        """Render and save the current GUI viewpoint ('render view' button,
+        palette/gui.py:387-399). Returns the path."""
+        out = self.test_gui(pose, intrinsics, W, H)
+        path = os.path.join(self.workspace, "results",
+                            f"{name or self.name}_view_{int(time.time())}.png")
+        self._save_image(path, out["image"])
+        self.log(f"[GUI] saved view {path}")
+        return path
+
+    def density_lattice(self, resolution: int) -> np.ndarray:
+        """Density (``sigma``, EMA weights) on the ``resolution``^3 lattice of
+        linspace(-bound, bound) in x, y, z (ij order), queried on the device: [R, R, R]."""
+        b = self.spec.bound
+        lin = torch.from_numpy(np.linspace(-b, b, resolution, dtype=np.float32)).to(self.device)
+        grid = torch.stack(torch.meshgrid(lin, lin, lin, indexing="ij"), -1).reshape(-1, 3)
+        sigma = self._density(self.eval_params(), grid)
+        return sigma.reshape((resolution,) * 3).cpu().numpy()
+
+    def save_mesh(self, resolution: int = 256, threshold: float = 10.0,
+                  save_path: Optional[str] = None) -> str:
+        """Marching-tetrahedra mesh of the density field as a binary PLY (nerf/utils.py:
+        633-653, 187-217). ``self.mesh_stats`` keeps the seconds of the lattice (device
+        queries and the move to the host) and of the host's marching tetrahedra."""
+        from ..utils.mcubes import marching_tetrahedra, write_ply
+
+        save_path = save_path or os.path.join(
+            self.workspace, "meshes", f"{self.name}_{self.epoch}.ply")
+        os.makedirs(os.path.dirname(save_path), exist_ok=True)
+        t0 = time.perf_counter()
+        field = self.density_lattice(resolution)
+        t1 = time.perf_counter()
+        verts, faces = marching_tetrahedra(field, threshold)
+        b = self.spec.bound
+        verts = verts / (resolution - 1) * (2 * b) - b
+        write_ply(save_path, verts, faces)
+        self.mesh_stats = {"lattice_s": t1 - t0, "host_s": time.perf_counter() - t1,
+                           "vertices": len(verts), "faces": len(faces)}
+        self.log(f"[save_mesh] {len(verts)} verts, {len(faces)} faces -> {save_path}")
+        return save_path
 
     @staticmethod
     def _save_image(path: str, img01: np.ndarray):

@@ -38,6 +38,7 @@ from palettenerf_torch.extraction import hull as thull
 from palettenerf_torch.extraction import tan18 as ttan
 from palettenerf_torch.models import palette as tpal
 from palettenerf_torch.train import checkpoint as tckpt
+from palettenerf_torch.utils.mcubes import read_ply
 from synthetic import make_sphere_dataset
 
 torch.set_num_threads(2)
@@ -264,9 +265,20 @@ def test_main_palette_end_to_end_on_cpu(tmp_path, monkeypatch):
     -> serve, through the CLIs on the sphere scene."""
     monkeypatch.chdir(tmp_path)
     scene = make_sphere_dataset(str(tmp_path / "scene"), n_train=8, n_val=1, n_test=2, H=32, W=32)
-    main_nerf.main([scene] + COMMON + ["--iters", "96", "--eval_interval", "100",
-                                       "--workspace", "sphere", "--lambda_sparse", "0"],
-                   device="cpu")
+    nerf = main_nerf.main([scene] + COMMON + ["--iters", "96", "--eval_interval", "100",
+                                              "--workspace", "sphere", "--lambda_sparse", "0"],
+                          device="cpu", mesh_resolution=40)
+    # the CLI's tail, the mesh at density 10 (this short run may stay below it), parses;
+    # at half the field's peak the mesh is the sphere (radius 0.5 x scale 0.7)
+    mesh = tmp_path / "results" / "sphere" / "version_1" / "meshes" / f"ngp_{nerf.epoch}.ply"
+    verts, faces = read_ply(mesh)
+    assert np.abs(verts).max(initial=0.0) <= 1.0 and faces.max(initial=-1) < len(verts)
+    peak = float(nerf.density_lattice(40).max())
+    verts, faces = read_ply(nerf.save_mesh(resolution=40, threshold=peak / 2))
+    assert len(faces) > 100 and faces.min() >= 0 and faces.max() < len(verts)
+    assert np.abs(verts).max() <= 1.0
+    radius = np.linalg.norm(verts, axis=-1)
+    assert 0.2 < np.median(radius) < 0.5, (peak, np.median(radius))
     pal = ["--use_normalized_palette"]
     ex = main_palette.main([scene, "results/sphere"] + COMMON + pal + ["--extract_palette"],
                            device="cpu")
@@ -304,7 +316,8 @@ def test_main_palette_end_to_end_on_cpu(tmp_path, monkeypatch):
     assert te.epoch == 3 and [m.name for m in te.metrics] == ["PSNR", "SSIM", "TV", "Sparsity"]
     assert te.stats["results"][-1] == pytest.approx(tr.stats["results"][-1], abs=1e-4)
     assert not (tmp_path / "results_palette" / "sphere" / "version_2").exists()
-    with pytest.raises(NotImplementedError, match="gui"):
+    # --gui reaches the DearPyGui front-end, which needs the dearpygui package
+    with pytest.raises(ImportError, match=r"palettenerf_torch\.gui\.EditingSession"):
         main_palette.main([scene, "results/sphere"] + COMMON + pal + ["--test", "--gui"],
                           device="cpu")
 

@@ -22,6 +22,7 @@ from palettenerf_torch.data.provider import NeRFDataset
 from palettenerf_torch.models import nerf as tnerf
 from palettenerf_torch.train.checkpoint import params_from_jax
 from palettenerf_torch.train.trainer import Trainer as TTrainer
+from palettenerf_torch.utils.mcubes import read_ply
 from synthetic import make_sphere_dataset
 
 torch.set_num_threads(2)
@@ -137,9 +138,13 @@ def test_main_nerf_cli_on_cpu(sphere_scene, tmp_path, monkeypatch):
             "--min_near", "0.05", "--num_rays", "256", "--iters", "16", "--max_steps", "64",
             "--train_samples_per_ray", "16", "--infer_samples_per_ray", "32",
             "--log2_hashmap_size", "10", "--grid_levels", "4", "--eval_interval", "1"]
-    tr = tmain.main(argv, device="cpu")
+    tr = tmain.main(argv, device="cpu", mesh_resolution=24)
     assert tr.global_step == 16 and tr.spec.fp16
     assert (tmp_path / "results" / "workspace" / "version_1" / "results").is_dir()
+    # the CLI ends with the mesh export: a PLY that parses, vertices inside the box
+    verts, faces = read_ply(tmp_path / "results" / "workspace" / "version_1" / "meshes" /
+                            f"ngp_{tr.epoch}.ply")
+    assert np.abs(verts).max(initial=0.0) <= 1.0 and faces.max(initial=-1) < len(verts)
     with pytest.raises(NotImplementedError, match="stochastic_trilerp"):
         tmain.main(argv + ["--stochastic_trilerp"], device="cpu")
 
