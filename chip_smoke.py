@@ -24,6 +24,14 @@ Phases (each raises on failure; the script then exits non-zero):
    stream: the update stream one train batch gives ``scatter_add`` on the trained
    field (rays marched through the trained occupancy grid), on which the kernel is
    held against its plain version and timed again, with the stream's statistics.
+   -O2 reference: the ``-O2`` encoder (4 levels, 2^13 rows, hash and hash_xadd) on the
+   card against the CPU on the same points and draws: exact forward, corner draws and
+   the forward where they agree, the table gradient of each backward mode (drawn row,
+   nearest corner, grad_levels) with B1 against the plain version.
+   -O2 train main path: the same configuration with ``-O2`` for 300 steps, one
+   validation view, then B1 on the ``-O2`` and ``--fast_grad`` backward streams of one
+   batch on that field, held and timed in both of its modes; one ``--error_map`` epoch
+   (host-sampled, resumed from it) and two epochs of ``--gridtype hash_xadd -O2``.
 6. palette reference: one small ``-O`` palette train step (smooth loss on, basis colors
    unfrozen, hist weights present) on the card against the same step on the CPU: loss
    and every gradient; ``encoder`` and ``sigma_net`` get none on either.
@@ -56,6 +64,12 @@ the training views (``--extract_palette --extract_via_sweep``), then 300 palette
     split; then ``save_mesh(256, 10)`` of the stage-1 trainer of phase 5 (``main_nerf``'s
     tail), with the PLY's checks.
 
+12. -O2 palette main path: ``main_palette.main`` with ``-O2 --random_size 8
+    --lambda_patchsmooth 0.004`` on the extraction of phase 7 (host-sampled epochs, one
+    per schedule phase, workspace ``results_palette/chip_smoke/version_2``) with the
+    CLI's test tail and one validation view; then a 16-step ``train_burst`` of an
+    ``EditingSession`` on its ``--test`` trainer.
+
 Launch counts are zeroed just before each main path and read just after; every kernel
 of the train, palette and edit paths must have launched there (the serve path runs no
 kernel of its own; on the edit path ``scatter_add`` launches in the training burst only).
@@ -66,6 +80,7 @@ Exits non-zero, printing no result, without a CUDA device or outside a checkout.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -112,6 +127,24 @@ FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 SM_CLOCK_HZ = 1.7e9        # roughly; only sizes the head start of time_ms
 PALETTE = [[0.9, 0.2, 0.1], [0.1, 0.8, 0.3], [0.2, 0.3, 0.9], [0.8, 0.8, 0.2],
            [0.6, 0.4, 0.7]]
+# the -O2 stage-1 path: the same configuration with -O2 (= -O + --fast_grad
+# --stochastic_trilerp --grad_levels 8) in place of -O
+O2_ARGS = [("-O2" if a == "-O" else a) for a in MAIN_ARGS]
+O2_WS = os.path.join("results", "chip_smoke_o2", "version_1")
+XADD_WS = os.path.join("results", "chip_smoke_xadd", "version_1")
+O2_PSNR_FLOOR = 18.0       # validation view 0 after 300 -O2 steps: set from the first
+#                            card run (19.737 dB; -O 21.759 dB) with ~1.7 dB margin
+# the -O2 palette path: scripts/run_blender.sh:58-84 with configs_blender/hotdog.sh's
+# --random_size 8, -O2 in place of -O, and the patch-smooth term on at the default
+# weight of the other smooth term (--lambda_smooth 0.004); workspace version_2 beside
+# the -O palette path's version_1
+PATCHSMOOTH = 0.004
+O2_PALETTE_ARGS = [("-O2" if a == "-O" else a) for a in PALETTE_TRAIN_ARGS] + [
+    "--random_size", "8", "--lambda_patchsmooth", str(PATCHSMOOTH), "--version_id", "2"]
+O2_PALETTE_PSNR_FLOOR = 21.0  # validation view 0 after 300 + 300 steps: set from the
+#                               first card run (22.684 dB; -O 23.127 dB) with ~1.7 dB margin
+PICK_FLIP_SHARE = 1e-5     # card vs CPU corner draws that may differ (u within an ulp of a
+#                            cumulative weight)
 SCATTER_RTOL = 1e-5        # of the row's summed |update|: f32 atomics reorder the sums
 SCATTER_PERIOD = 128       # corner columns per point: 16 levels x 8 corners
 TABLE_ROWS = 6_119_864     # full width: 16 levels, 2^19 rows per hashed level
@@ -485,7 +518,28 @@ def phase_main_path(torch, dev):
         raise AssertionError(f"render shape {out['image'].shape}")
     if not val_psnr > PSNR_FLOOR:
         raise AssertionError(f"validation PSNR {val_psnr:.3f} dB <= floor {PSNR_FLOOR}")
-    return launches, phase_path_stream(torch, trainer, train_ds), train_ds, trainer
+    return launches, phase_path_stream(torch, trainer, train_ds), train_ds, trainer, val_psnr
+
+
+def march_train_batch(torch, trainer, train_ds, seed):
+    """One train batch as the train step marches it: 4096 random pixels of training view
+    0 through the trainer's occupancy grid, jittered, 64 sample slots per ray. Returns
+    (the march, the sample positions in [0, 1]^3 [N*S, 3], the generator drawn from)."""
+    from palettenerf_torch.data.rays import gen_rays_torch
+    from palettenerf_torch.ops.rays import near_far_from_aabb
+    from palettenerf_torch.render.nerf_renderer import _aabb, _march
+
+    dev, st = trainer.device, trainer.train_settings
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = trainer.opt.num_rays
+    inds = torch.randint(0, train_ds.H * train_ds.W, (n,), generator=gen, device=dev)
+    rays_o, rays_d = gen_rays_torch(torch.as_tensor(train_ds.poses[0]).to(dev),
+                                    [float(v) for v in train_ds.intrinsics], train_ds.H,
+                                    train_ds.W, inds)
+    nears, fars = near_far_from_aabb(rays_o, rays_d, _aabb(st, dev), st.min_near)
+    m = _march(rays_o, rays_d, nears, fars, trainer.grid_state.bitfield, st, st.num_samples,
+               torch.rand((n,), generator=gen, device=dev))
+    return m, (m.xyzs.reshape(-1, 3) + st.bound) / (2.0 * st.bound), gen
 
 
 def phase_path_stream(torch, trainer, train_ds):
@@ -495,22 +549,11 @@ def phase_path_stream(torch, trainer, train_ds):
     through the encoder's corner indices, seeded bf16 values that are zero in the padded
     sample slots (their cotangents are zero in the train step). Held against the plain
     version, then timed; returns the times with ``path_`` before each name."""
-    from palettenerf_torch.data.rays import gen_rays_torch
     from palettenerf_torch.ops import hashgrid_fast, scatter
-    from palettenerf_torch.ops.rays import near_far_from_aabb
-    from palettenerf_torch.render.nerf_renderer import _aabb, _march
 
     dev, spec, st = trainer.device, trainer.spec.grid, trainer.train_settings
-    gen = torch.Generator(device=dev).manual_seed(5)
     n = trainer.opt.num_rays
-    inds = torch.randint(0, train_ds.H * train_ds.W, (n,), generator=gen, device=dev)
-    rays_o, rays_d = gen_rays_torch(torch.as_tensor(train_ds.poses[0]).to(dev),
-                                    [float(v) for v in train_ds.intrinsics], train_ds.H,
-                                    train_ds.W, inds)
-    nears, fars = near_far_from_aabb(rays_o, rays_d, _aabb(st, dev), st.min_near)
-    m = _march(rays_o, rays_d, nears, fars, trainer.grid_state.bitfield, st, st.num_samples,
-               torch.rand((n,), generator=gen, device=dev))
-    x01 = (m.xyzs.reshape(-1, 3) + st.bound) / (2.0 * st.bound)
+    m, x01, gen = march_train_batch(torch, trainer, train_ds, 5)
     idx = hashgrid_fast.corner_indices(spec, x01)[0].reshape(-1).contiguous()
     U, C = idx.numel(), spec.level_dim
     if U != n * st.num_samples * SCATTER_PERIOD:
@@ -524,6 +567,346 @@ def phase_path_stream(torch, trainer, train_ds):
     stream_stats(torch, spec, idx, vals, "path")
     t = time_scatter(torch, scatter, idx, vals, spec.total_params, "path")
     return {f"path_{k}": v for k, v in t.items()}
+
+
+def phase_o2_reference(torch, dev):
+    """The -O2 encoder on a small spec (4 levels, 2^13 rows) on the card and on the CPU,
+    same points, uniforms and level subset, for hash and hash_xadd: the exact forward
+    (1e-6); the stochastic draws (a share <= PICK_FLIP_SHARE may differ) and the forward
+    where they agree (1e-6); the table gradient of each backward mode, B1 on the card
+    against the plain version on the CPU on the card's own update stream, and against
+    the CPU's whole backward where no draw differs (SCATTER_RTOL of each row's summed
+    |update|). Returns the largest absolute gradient difference."""
+    from palettenerf_torch.ops import hashgrid_fast as hf
+    from palettenerf_torch.ops import scatter
+    from palettenerf_torch.ops.hashgrid import HashGridSpec
+
+    gen = torch.Generator().manual_seed(11)
+    M, L = 1 << 16, 4
+    x = torch.rand((M, 3), generator=gen)
+    u = torch.rand((M, L), generator=gen)
+    lvls = torch.tensor([3, 1])
+    co = torch.randn((M, 2 * L), generator=gen)
+    modes = {"stochastic": (False, True, 0), "nearest_corner_grad": (True, False, 0),
+             "grad_levels": (True, True, 2)}
+    worst, notes = 0.0, []
+    for gridtype in ("hash", "hash_xadd"):
+        spec = HashGridSpec.build(num_levels=L, desired_resolution=512, log2_hashmap_size=13,
+                                  gridtype=gridtype)
+        table = torch.rand((spec.total_params, 2), generator=gen) * 2 - 1
+        exact = [hf.hashgrid_encode_fast(table.to(d), x.to(d), spec).cpu() for d in ("cpu", dev)]
+        err_exact = float((exact[0] - exact[1]).abs().max())
+        (out_c, res_c), (out_g, res_g) = (hf._encode(table.to(d), spec, x.to(d), u.to(d), True)
+                                          for d in ("cpu", dev))
+        flipped = res_c[0] != res_g[0].cpu()
+        same = ~flipped[..., None].expand(-1, -1, 2).reshape(M, 2 * L)
+        err_draw = float((out_c - out_g.cpu())[same].abs().max())
+        share = float(flipped.float().mean())
+        if err_exact > 1e-6 or err_draw > 1e-6 or share > PICK_FLIP_SHARE:
+            raise AssertionError(f"-O2 reference {gridtype}: exact forward off by {err_exact}, "
+                                 f"drawn forward by {err_draw}, {share} of the draws differ")
+        for mode, (nearest, stochastic, levels) in modes.items():
+            rand = hf.EncodeRand(u=u.to(dev), lvls=lvls.to(dev))
+            t = table.to(dev, copy=True).requires_grad_(True)
+            before = read_counts()["scatter_add"]
+            out = hf.hashgrid_encode_fast(t, x.to(dev), spec, torch.bfloat16, nearest,
+                                          stochastic, rand, levels)
+            (out * co.to(dev)).sum().backward()
+            torch.cuda.synchronize()
+            scatter.check_refused()
+            if read_counts()["scatter_add"] - before != 1:
+                raise AssertionError(f"-O2 reference {gridtype} {mode}: B1 not launched once")
+            _, res = hf._encode(table.to(dev), spec, x.to(dev), u.to(dev), stochastic)
+            rows, upd, _ = hf._backward_stream(spec, res, lvls.to(dev), co.to(dev), nearest,
+                                               stochastic, levels)
+            rows, vals = rows.cpu(), upd.to(torch.bfloat16).cpu()
+            ref = scatter.scatter_add_reference(rows, vals, spec.total_params)
+            scale = scatter.scatter_add_reference(rows, vals.abs(), spec.total_params)
+            got = t.grad.cpu()
+            err = (got - ref).abs()
+            bad = int((err > SCATTER_RTOL * scale).sum())
+            if not flipped.any():
+                tc = table.detach().clone().requires_grad_(True)
+                hf.hashgrid_encode_fast(tc, x, spec, torch.bfloat16, nearest, stochastic,
+                                        hf.EncodeRand(u=u, lvls=lvls),
+                                        levels).mul(co).sum().backward()
+                bad += int(((got - tc.grad).abs() > SCATTER_RTOL * scale).sum())
+            if bad:
+                raise AssertionError(f"-O2 reference {gridtype} {mode}: {bad} table rows off "
+                                     f"beyond {SCATTER_RTOL} of their summed |update|")
+            worst = max(worst, float(err.max()))
+            notes.append(f"{gridtype}/{mode} U={rows.numel()} {float(err.max()):.2e}")
+        notes.append(f"{gridtype}: exact forward {err_exact:.1e}, drawn forward "
+                     f"{err_draw:.1e}, {int(flipped.sum())} of {flipped.numel()} draws differ")
+    log("-O2 reference (card vs CPU, 4 levels, 2^13 rows, 65,536 points): "
+        + "; ".join(notes))
+    return worst
+
+
+def o2_streams(torch, trainer, train_ds):
+    """The backward streams B1 gets under -O2 and under --fast_grad alone, from one train
+    batch on the field ``trainer`` trained (4096 rays of view 0 marched through its
+    occupancy grid as the train step marches them, 64 slots per ray; cotangents zero in
+    the padded slots): rows picked by the corner draw (stochastic, 8 of 16 levels) and by
+    the nearest corner (16 levels). Each is held against the plain version in both of the
+    kernel's modes, then timed in both, beside the plain version and ``index_add_``."""
+    from palettenerf_torch.ops import hashgrid_fast as hf
+    from palettenerf_torch.ops import scatter
+
+    dev, spec = trainer.device, trainer.spec.grid
+    m, x01, gen = march_train_batch(torch, trainer, train_ds, 7)
+    M, C = x01.shape[0], spec.level_dim
+    rand = hf.make_encode_rand(gen, M, spec, trainer.spec.grad_levels)
+    g = torch.randn((M, spec.output_dim), generator=gen, device=dev) * 1e-3
+    g = g * m.mask.reshape(-1, 1)
+    table = trainer.params["encoder"].detach()
+    out = {}
+    for name, (nearest, stochastic, levels) in (("O2", (True, True, 8)),
+                                                ("fast_grad", (True, False, 0))):
+        _, res = hf._encode(table, spec, x01, rand.u if stochastic else None, stochastic)
+        rows, upd, period = hf._backward_stream(spec, res, rand.lvls, g, nearest, stochastic,
+                                                levels)
+        vals = upd.to(torch.bfloat16).contiguous()
+        U = rows.numel()
+        if U != M * (levels or spec.num_levels):
+            raise AssertionError(f"{name} stream has {U} updates")
+        total = spec.total_params
+        ref = scatter.scatter_add_reference(rows, vals, total)
+        scale = scatter.scatter_add_reference(rows, vals.abs(), total)
+        modes = {"columns": period, "rows": None}
+        max_err = 0.0
+        for mode, per in modes.items():
+            got = scatter.scatter_add(rows, vals, total, per)
+            torch.cuda.synchronize()
+            scatter.check_refused()
+            bad = int(((got - ref).abs() > SCATTER_RTOL * scale).sum())
+            if bad:
+                raise AssertionError(f"scatter_add on the {name} stream ({mode}): {bad} rows "
+                                     f"differ from the plain version")
+            max_err = max(max_err, float((got - ref).abs().max()))
+        # the two modes in turns (columns, rows, rows, columns, ...): median of 4 each
+        runs = {mode: [] for mode in modes}
+        for rep in range(4):
+            for mode in (list(modes) if rep % 2 == 0 else list(modes)[::-1]):
+                runs[mode].append(time_ms(torch, lambda per=modes[mode]: scatter.scatter_add(
+                    rows, vals, total, per)))
+        t = {f"{mode}_ms": sorted(v)[len(v) // 2] for mode, v in runs.items()}
+        vals_f32 = vals.float()
+        out_f32 = torch.zeros((total, C), device=dev)
+        t["plain_ms"] = time_ms(torch, lambda: scatter.scatter_add_reference(rows, vals, total))
+        t["library_ms"] = time_ms(torch, lambda: out_f32.index_add_(0, rows, vals_f32))
+        n_bytes = U * (4 + 2 * C) + total * C * 4
+        takes = "columns" if period >= hf.MIN_COLUMN_PERIOD else "rows"
+        faster = "columns" if t["columns_ms"] < t["rows_ms"] else "rows"
+        t.update(U=U, period=period, max_abs_err=max_err, port_takes=takes, faster=faster,
+                 bound_ms=max(n_bytes / HBM_BYTES_PER_S, U * C / FP32_FLOPS) * 1e3,
+                 bound_by="bytes" if n_bytes / HBM_BYTES_PER_S >= U * C / FP32_FLOPS
+                 else "operations")
+        log(f"scatter_add on the {name} stream: U={U}, {period} columns per point, "
+            f"{100 * float(m.mask.float().mean()):.2f}% of the slots hold a sample; column "
+            f"walk {t['columns_ms']:.4f} ms, stream order {t['rows_ms']:.4f} ms (medians of "
+            f"4 in turns; the port takes {takes}), plain {t['plain_ms']:.4f} ms, index_add_ "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({n_bytes / 1e6:.1f} "
+            f"MB), max_abs_err {max_err:.3e}")
+        out[name] = t
+    return out
+
+
+def phase_o2_main_path(torch, dev, train_ds, o_psnr):
+    """-O2 stage 1 at full width: ``main_nerf``'s parser with MAIN_ARGS and -O2, 300 steps
+    from scratch, one validation view, the B1 streams of -O2 and --fast_grad; then one
+    --error_map epoch (the host-sampled epoch) resumed from it, and two epochs of
+    --gridtype hash_xadd -O2 from scratch. Returns (launch counts of the -O2 run, a dict
+    of what was measured)."""
+    import numpy as np
+
+    from palettenerf_torch.config import Config
+    from palettenerf_torch.data.provider import NeRFDataset
+    from palettenerf_torch.main_nerf import build_parser
+    from palettenerf_torch.models.nerf import NeRFSpec, param_list
+    from palettenerf_torch.train.metrics import psnr
+    from palettenerf_torch.train.trainer import Trainer
+
+    cfg = Config.from_args(build_parser().parse_args(O2_ARGS))
+    if (cfg.fast_grad, cfg.stochastic_trilerp, cfg.grad_levels, cfg.fp16) != (True, True, 8, True):
+        raise AssertionError(f"-O2 resolved to {cfg}")
+
+    def spec_of(c):
+        return NeRFSpec.build(bound=c.bound, bg_radius=c.bg_radius, fp16=c.fp16_enabled,
+                              fast_grad=c.fast_grad, stochastic_trilerp=c.stochastic_trilerp,
+                              grad_levels=c.grad_levels, log2_hashmap_size=c.log2_hashmap_size,
+                              grid_levels=c.grid_levels, grid_level_dim=c.grid_level_dim,
+                              gridtype=c.gridtype)
+
+    spec = spec_of(cfg)
+    valid_ds = NeRFDataset(cfg, type="val")
+    trainer = Trainer("ngp", cfg, spec, workspace=os.path.join(ROOT, O2_WS),
+                      use_checkpoint="scratch", eval_interval=10_000, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    # -------------------------------------------------------------- main path
+    trainer.train(train_ds, None, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train(train_ds, None, EPOCHS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    data = valid_ds.collate(0)
+    trainer.eval_step_full(data)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = trainer.eval_step_full(data)
+    eval_s = time.perf_counter() - t0
+    launches = read_counts()
+    # -------------------------------------------------------------- checks
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps, losses = trainer.global_step, trainer.stats["loss"]
+    img = data["images"]
+    val_psnr = psnr(out["image"], img[..., :3] * img[..., 3:] + (1.0 - img[..., 3:]))
+    res = {"steps_per_s": (steps - len(train_ds)) / train_s, "eval_s": eval_s,
+           "val_psnr": val_psnr, "peak_gib": peak_gb}
+    log(f"-O2 main path: {steps} steps, epoch losses {['%.5f' % v for v in losses]}; "
+        f"{res['steps_per_s']:.2f} steps/s (epochs 2-{EPOCHS}), eval {eval_s:.3f} s/frame, "
+        f"val PSNR {val_psnr:.3f} dB (-O: {o_psnr:.3f} dB), peak memory {peak_gb:.2f} GiB, "
+        f"launches {launches}")
+    if steps != EPOCHS * len(train_ds) or not losses[-1] < losses[0]:
+        raise AssertionError(f"-O2: {steps} steps, epoch losses {losses}")
+    if launches["scatter_add"] != steps:
+        raise AssertionError(f"-O2: scatter_add launched {launches['scatter_add']} times in "
+                             f"{steps} steps")
+    if not all(bool(torch.isfinite(p).all()) for p in param_list(trainer.params)) or not all(
+            np.isfinite(v).all() for v in out.values()):
+        raise AssertionError("-O2: non-finite parameters or render")
+    if not val_psnr > O2_PSNR_FLOOR:
+        raise AssertionError(f"-O2 validation PSNR {val_psnr:.3f} dB <= floor {O2_PSNR_FLOOR}")
+    res["streams"] = o2_streams(torch, trainer, train_ds)
+    del trainer
+
+    # -------------------------------------------------------------- --error_map epoch
+    em_cfg = cfg.replace(error_map=True)
+    em_ds = NeRFDataset(em_cfg, type="train")
+    em_tr = Trainer("ngp", em_cfg, spec, workspace=os.path.join(ROOT, O2_WS),
+                    use_checkpoint="latest", eval_interval=10_000, device=dev)
+    before = em_ds.error_map.copy()
+    zero_counts()
+    t0 = time.perf_counter()
+    em_tr.train(em_ds, None, EPOCHS + 1)
+    torch.cuda.synchronize()
+    em_s = time.perf_counter() - t0
+    em_launches = read_counts()["scatter_add"]
+    moved = int((em_ds.error_map != before).any(-1).sum())
+    res["error_map_steps_per_s"] = len(em_ds) / em_s
+    log(f"-O2 --error_map epoch (host-sampled): {len(em_ds) / em_s:.2f} steps/s, loss "
+        f"{em_tr.stats['loss'][-1]:.5f}, error maps of {moved} of {len(em_ds)} views moved, "
+        f"scatter_add launches {em_launches}")
+    if em_tr.global_step != (EPOCHS + 1) * len(em_ds) or moved != len(em_ds) or \
+            em_launches != len(em_ds) or not math.isfinite(em_tr.stats["loss"][-1]):
+        raise AssertionError(f"--error_map epoch: step {em_tr.global_step}, {moved} maps moved, "
+                             f"{em_launches} launches")
+    del em_tr, em_ds
+
+    # -------------------------------------------------------------- --gridtype hash_xadd
+    x_cfg = cfg.replace(gridtype="hash_xadd")
+    x_tr = Trainer("ngp", x_cfg, spec_of(x_cfg), workspace=os.path.join(ROOT, XADD_WS),
+                   use_checkpoint="scratch", eval_interval=10_000, device=dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    x_tr.train(train_ds, None, 2)
+    torch.cuda.synchronize()
+    x_s = time.perf_counter() - t0
+    x_launches = read_counts()["scatter_add"]
+    x_losses = x_tr.stats["loss"]
+    res["xadd_steps_per_s"] = x_tr.global_step / x_s
+    log(f"-O2 --gridtype hash_xadd from scratch: {x_tr.global_step} steps, epoch losses "
+        f"{['%.5f' % v for v in x_losses]}, {res['xadd_steps_per_s']:.2f} steps/s (first-use "
+        f"costs included), scatter_add launches {x_launches}")
+    if not all(math.isfinite(v) for v in x_losses) or not x_losses[-1] < x_losses[0] or \
+            x_launches != x_tr.global_step:
+        raise AssertionError(f"hash_xadd: losses {x_losses}, {x_launches} launches")
+    del x_tr
+    gc.collect()  # the trainers of this phase hold the card's memory until collected
+    torch.cuda.empty_cache()
+    return launches, res
+
+
+def phase_o2_palette(torch, dev, o_palette_psnr, n_views):
+    """The -O2 palette path through ``main_palette.main`` on the extraction the palette
+    phase made: 300 steps of -O2 --random_size 8 with the patch-smooth term (host-sampled
+    epochs, one per schedule phase), the CLI's test tail, one validation view; then a
+    16-step training burst of an ``EditingSession`` on the --test trainer. Returns (the
+    launch counts of the training run, those of the burst, a dict of what was measured)."""
+    import numpy as np
+
+    from palettenerf_torch import main_palette
+    from palettenerf_torch.config import Config
+    from palettenerf_torch.data.palette_provider import PaletteDataset
+    from palettenerf_torch.data.provider import NeRFDataset
+    from palettenerf_torch.gui import EditingSession
+    from palettenerf_torch.models.mlp import param_leaves
+    from palettenerf_torch.ops import scatter
+    from palettenerf_torch.train.metrics import psnr
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    # -------------------------------------------------------------- main path
+    t0 = time.perf_counter()
+    trainer = main_palette.main(O2_PALETTE_ARGS, device=dev)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = read_counts()
+    # -------------------------------------------------------------- checks
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    scatter.check_refused()
+    spec = trainer.palette_spec
+    losses, secs = trainer.stats["loss"], trainer.stats["epoch_seconds"]
+    rates = [n_views / t for t in secs]
+    log(f"-O2 palette main path (--random_size 8, --lambda_patchsmooth {PATCHSMOOTH}): "
+        f"{trainer.global_step} steps in {total_s:.1f} s with the test tail; epoch losses "
+        f"{['%.5f' % v for v in losses]}; steps/s per epoch (colors frozen / + smooth and "
+        f"patch terms / + colors unfrozen) {['%.2f' % r for r in rates]}; peak memory "
+        f"{peak_gb:.2f} GiB; launches {launches}")
+    if not (trainer.host_sampled() and spec.stochastic_trilerp and spec.grad_levels == 8):
+        raise AssertionError("-O2 palette: not the host-sampled -O2 trainer")
+    if trainer.global_step != 3 * n_views or len(losses) != 3 or not all(
+            math.isfinite(v) for v in losses) or not losses[2] < losses[0]:
+        raise AssertionError(f"-O2 palette: {trainer.global_step} steps, losses {losses}")
+    if launches["scatter_add"] != 5 * n_views:
+        raise AssertionError(f"-O2 palette: scatter_add launched {launches['scatter_add']} "
+                             f"times ({5 * n_views} expected: once per step, twice with the "
+                             f"smooth loss's second pass)")
+    valid_ds = NeRFDataset(Config(path=SCENE, bound=1.0, scale=0.8), type="val")
+    data = valid_ds.collate(0)
+    out = trainer.eval_step_full(data)
+    img = data["images"]
+    val_psnr = psnr(out["image"], img[..., :3] * img[..., 3:] + (1.0 - img[..., 3:]))
+    log(f"-O2 palette main path: val PSNR {val_psnr:.3f} dB (-O: {o_palette_psnr:.3f} dB)")
+    if not all(np.isfinite(v).all() for v in out.values()) or not val_psnr > O2_PALETTE_PSNR_FLOOR:
+        raise AssertionError(f"-O2 palette validation PSNR {val_psnr:.3f} dB <= floor "
+                             f"{O2_PALETTE_PSNR_FLOOR}")
+    del trainer
+
+    # -------------------------------------------------------------- the editor's burst
+    cfg, tr = main_palette.load_test_trainer(O2_PALETTE_ARGS + ["--test"], device=dev)
+    sess = EditingSession(tr, W=cfg.W, H=cfg.H, radius=cfg.radius, fovy=cfg.fovy)
+    train_ds = PaletteDataset(cfg, type="train")
+    zero_counts()
+    t0 = time.perf_counter()
+    burst = sess.train_burst(train_ds, steps=16)
+    torch.cuda.synchronize()
+    burst_s = time.perf_counter() - t0
+    burst_launches = read_counts()
+    log(f"-O2 edit burst: 16 steps at {16 / burst_s:.2f} steps/s (loss {burst['loss']:.5f}), "
+        f"launches {burst_launches}")
+    if burst_launches["scatter_add"] != 16 or not math.isfinite(burst["loss"]) or not all(
+            bool(torch.isfinite(p).all()) for p in param_leaves(tr.params)):
+        raise AssertionError(f"-O2 burst: {burst_launches}, loss {burst['loss']}")
+    del sess, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, burst_launches, {"steps_per_s": rates, "val_psnr": val_psnr,
+                                      "burst_steps_per_s": 16 / burst_s, "peak_gib": peak_gb}
 
 
 def _random_palette_params(torch, spec, gen, lively: bool = True):
@@ -757,7 +1140,7 @@ def phase_palette(torch, dev, train_ds):
     if not val_psnr > PALETTE_PSNR_FLOOR:
         raise AssertionError(f"palette validation PSNR {val_psnr:.3f} dB <= floor "
                              f"{PALETTE_PSNR_FLOOR}")
-    return launches, trainer.workspace
+    return launches, trainer.workspace, val_psnr
 
 
 def phase_serve_reference(torch, dev):
@@ -1175,20 +1558,33 @@ def main() -> int:
     kernels = phase_kernels(torch, dev)
     wg_entry = phase_window_gather(torch, dev)
     phase_reference(torch, dev)
-    train_launches, path_times, train_ds, stage1 = phase_main_path(torch, dev)
+    train_launches, path_times, train_ds, stage1, o_psnr = phase_main_path(torch, dev)
+    o2_ref_err = phase_o2_reference(torch, dev)
+    o2_launches, o2 = phase_o2_main_path(torch, dev, train_ds, o_psnr)
     phase_palette_reference(torch, dev)
-    palette_launches, palette_ws = phase_palette(torch, dev, train_ds)
+    palette_launches, palette_ws, o_palette_psnr = phase_palette(torch, dev, train_ds)
+    n_views = len(train_ds)
     del train_ds
     phase_edit_reference(torch, dev)
     edit_launches = phase_edit(torch, dev, stage1)
     del stage1
+    o2_palette_launches, o2_edit_launches, o2_palette = phase_o2_palette(
+        torch, dev, o_palette_psnr, n_views)
     for k in kernels:
-        k["path"] = "train, palette, edit"
+        k["path"] = "train, palette, edit, train-O2, palette-O2, edit-O2"
         k["launches"] = train_launches[k["name"]]
         k["palette_launches"] = palette_launches[k["name"]]
         k["edit_launches"] = edit_launches[k["name"]]
+        k["train_O2_launches"] = o2_launches[k["name"]]
+        k["palette_O2_launches"] = o2_palette_launches[k["name"]]
+        k["edit_O2_launches"] = o2_edit_launches[k["name"]]
         k.update(path_times)
+        k["O2_reference_max_abs_err"] = o2_ref_err
+        k["O2_stream"] = o2["streams"]["O2"]
+        k["fast_grad_stream"] = o2["streams"]["fast_grad"]
     kernels.append(wg_entry)
+    log("-O2 summary: " + json.dumps({"train": {k: v for k, v in o2.items() if k != "streams"},
+                                      "palette": o2_palette}))
     phase_serve_reference(torch, dev)
     phase_serve(torch, dev, palette_ws)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -2,6 +2,11 @@
 
     python -m palettenerf_torch.main_nerf data_proc/proc_toys -O --bound 1 --scale 0.8 \
         --bg_radius 0 --density_thresh 10 --iters 8000 --workspace proc_toys
+    python -m palettenerf_torch.main_nerf data_proc/proc_toys -O2 --bound 1 --scale 0.8 \
+        --bg_radius 0 --density_thresh 10 --iters 8000 --workspace proc_toys_o2
+
+``-O2`` is ``-O`` plus ``--fast_grad --stochastic_trilerp --grad_levels 8``;
+``--gridtype hash_xadd`` and ``--error_map`` combine with either.
 
 Same flags as the JAX package's ``main_nerf.py`` (flags of paths that are not ported
 yet are accepted and raise). Both branches end with the mesh export, ``save_mesh(256,
@@ -141,8 +146,9 @@ def main(argv=None, device="cuda", mesh_resolution: int = 256):
 
     spec = NeRFSpec.build(
         bound=cfg.bound, bg_radius=cfg.bg_radius, fp16=cfg.fp16_enabled,
-        log2_hashmap_size=cfg.log2_hashmap_size, grid_levels=cfg.grid_levels,
-        grid_level_dim=cfg.grid_level_dim, gridtype=cfg.gridtype,
+        fast_grad=cfg.fast_grad, stochastic_trilerp=cfg.stochastic_trilerp,
+        grad_levels=cfg.grad_levels, log2_hashmap_size=cfg.log2_hashmap_size,
+        grid_levels=cfg.grid_levels, grid_level_dim=cfg.grid_level_dim, gridtype=cfg.gridtype,
     )
     workspace = resolve_workspace("results", cfg.workspace, cfg.version_id, cfg.test)
 

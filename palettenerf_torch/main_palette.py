@@ -8,6 +8,11 @@ an NVIDIA GPU.
         --bound 1 --scale 0.8 --bg_radius 0 --density_thresh 10 \
         --use_initialization_from_rgbxy --use_normalized_palette --dt_gamma 0 \
         --datatype blender --iters 8000
+    # the shipped fast profile with the paired-pixel sampler (scripts/run_blender.sh)
+    python -m palettenerf_torch.main_palette data_proc/proc_toys results/proc_toys -O2 \
+        --bound 1 --scale 0.8 --bg_radius 0 --density_thresh 10 \
+        --use_initialization_from_rgbxy --use_normalized_palette --dt_gamma 0 \
+        --datatype blender --iters 8000 --random_size 8 --lambda_patchsmooth 1e-3
 
 Same flags as the JAX package's ``main_palette.py`` (flags of paths that are not ported
 yet are accepted and raise), including the nerf-version discovery and the
@@ -35,7 +40,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--config", type=str, required=False, default="")
     p.add_argument("-O", action="store_true")
     p.add_argument("-O2", action="store_true",
-                   help="-O plus the fast-training profile (not ported: raises)")
+                   help="-O plus the fast-training profile "
+                        "(--fast_grad --stochastic_trilerp --grad_levels 8)")
     p.add_argument("--test", action="store_true")
     p.add_argument("--video", action="store_true")
     p.add_argument("--seed", type=int, default=0)
@@ -130,7 +136,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="hash backward: scatter a random subset of K levels per step (0=all)")
     p.add_argument("--gridtype", type=str, default="hash",
                    choices=["hash", "tiled", "hash_xadd"],
-                   help="hash_xadd: pair-local hash (not ported: raises)")
+                   help="hash_xadd: pair-local hash (x-adjacent rows, 2x fewer gathers)")
     p.add_argument("--eval_compaction", type=int, default=1, choices=[0, 1],
                    help="alive-ray compaction rounds in eval renders (0=exact)")
     p.add_argument("--train_compact_frac", type=float, default=0.0,

@@ -67,6 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--grid_levels", type=int, default=16)
     ap.add_argument("--grid_level_dim", type=int, default=2)
     ap.add_argument("--log2_hashmap_size", type=int, default=19)
+    ap.add_argument("--gridtype", default="hash", choices=["hash", "tiled", "hash_xadd"],
+                    help="the checkpoint's hash-grid type (main_palette's --gridtype)")
     return ap
 
 
@@ -157,7 +159,7 @@ def main(argv=None, device="cuda") -> ServeResult:
     P = opt.num_basis or params["basis_color"].shape[0]
     spec = PaletteSpec.build(bound=opt.bound, num_basis=P, grid_levels=opt.grid_levels,
                              grid_level_dim=opt.grid_level_dim,
-                             log2_hashmap_size=opt.log2_hashmap_size,
+                             log2_hashmap_size=opt.log2_hashmap_size, gridtype=opt.gridtype,
                              pred_clip=opt.pred_clip, clip_dim=opt.clip_dim)
     print(f"[serve] ckpt {ckpt} (P={P}); baking {opt.resolution}^3 "
           f"(vd_bands={opt.vd_bands}) on {dev} ...", flush=True)

@@ -19,7 +19,7 @@ import torch
 
 from ..ops.activation import trunc_exp
 from ..ops.hashgrid import HashGridSpec, init_hashgrid
-from ..ops.hashgrid_fast import hashgrid_encode_fast_bounded
+from ..ops.hashgrid_fast import EncodeRand, hashgrid_encode_fast_bounded, make_encode_rand
 from ..ops.sh import sh_encode
 from .mlp import apply_mlp, init_mlp
 
@@ -37,6 +37,9 @@ class NeRFSpec:
     sh_degree: int = 4
     bg_radius: float = -1.0
     fp16: bool = False  # -O: bf16 hash-grid backward scatter; forward stays f32
+    fast_grad: bool = False  # nearest-corner hash backward (8x fewer scatter updates)
+    stochastic_trilerp: bool = False  # train-only 1-corner Monte-Carlo trilerp
+    grad_levels: int = 0  # backward-only level subsampling (0 = all levels)
     grid: HashGridSpec = None  # type: ignore[assignment]
 
     @classmethod
@@ -85,10 +88,30 @@ def param_list(params: Params) -> List[torch.Tensor]:
     return [params["encoder"], *params["sigma_net"], *params["color_net"]]
 
 
-def nerf_density(params: Params, spec: NeRFSpec, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """x [..., 3] in [-bound, bound] -> dict(sigma [...], geo_feat [..., 15])."""
-    h = hashgrid_encode_fast_bounded(params["encoder"], x, spec.grid, spec.bound,
-                                     scatter_dtype=spec.scatter_dtype)
+def encode_rand_for(generator: torch.Generator, spec, n_samples: int) -> Optional[EncodeRand]:
+    """One train step's encode draws (corner draw + backward level subset) for ``spec``
+    (a NeRFSpec or PaletteSpec), or None when its training profile uses none."""
+    if not (spec.stochastic_trilerp or spec.grad_levels):
+        return None
+    return make_encode_rand(generator, n_samples, spec.grid, spec.grad_levels)
+
+
+def encode_field(table: torch.Tensor, spec, x: torch.Tensor, training: bool = False,
+                 rand: Optional[EncodeRand] = None) -> torch.Tensor:
+    """One hash encoder of ``spec``'s field at x [..., 3] in [-bound, bound].
+    ``training`` enables the train-only stochastic trilerp and level subsampling of the
+    spec; eval always interpolates exactly and scatters every level."""
+    return hashgrid_encode_fast_bounded(
+        table, x, spec.grid, spec.bound, scatter_dtype=spec.scatter_dtype,
+        nearest_corner_grad=spec.fast_grad, stochastic=training and spec.stochastic_trilerp,
+        rand=rand if training else None, grad_levels=spec.grad_levels if training else 0)
+
+
+def nerf_density(params: Params, spec: NeRFSpec, x: torch.Tensor, training: bool = False,
+                 rand: Optional[EncodeRand] = None) -> Dict[str, torch.Tensor]:
+    """x [..., 3] in [-bound, bound] -> dict(sigma [...], geo_feat [..., 15]).
+    ``training`` / ``rand``: see ``encode_field``."""
+    h = encode_field(params["encoder"], spec, x, training, rand)
     h = apply_mlp(params["sigma_net"], h)
     return {"sigma": trunc_exp(h[..., 0]), "geo_feat": h[..., 1:]}
 
@@ -100,6 +123,7 @@ def nerf_color(params: Params, spec: NeRFSpec, d: torch.Tensor,
     return apply_mlp(params["color_net"], h, final_activation=torch.sigmoid)
 
 
-def nerf_forward(params: Params, spec: NeRFSpec, x: torch.Tensor, d: torch.Tensor):
-    dens = nerf_density(params, spec, x)
+def nerf_forward(params: Params, spec: NeRFSpec, x: torch.Tensor, d: torch.Tensor,
+                 training: bool = False, rand: Optional[EncodeRand] = None):
+    dens = nerf_density(params, spec, x, training, rand)
     return dens["sigma"], nerf_color(params, spec, d, dens["geo_feat"])

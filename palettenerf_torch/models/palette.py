@@ -18,9 +18,10 @@ copy ``basis_color_origin`` and, after ``initialize_palette``, the frozen
 Gradient stops as in the JAX package: the geo feature is detached before every palette
 head and ``diffuse`` before ``basis_net``; the palette renderer detaches sigma.
 
-Not ported yet: the training-only encoder options (``stochastic_trilerp``,
-``grad_levels``, ``fast_grad``), the background net (``bg_radius > 0``) and
-``color_space="linear"``.
+The training-only encoder options (``fast_grad``, ``stochastic_trilerp``,
+``grad_levels``) act as in ``models/nerf.py``: with ``training`` every encoder of one
+forward (``encoder``, ``encoder_palette``, ``encoder_clip``) takes the same ``rand``.
+Not ported yet: the background net (``bg_radius > 0``) and ``color_space="linear"``.
 """
 
 from __future__ import annotations
@@ -34,16 +35,16 @@ import torch.nn.functional as F
 
 from ..ops.activation import trunc_exp
 from ..ops.hashgrid import HashGridSpec, init_hashgrid
-from ..ops.hashgrid_fast import hashgrid_encode_fast_bounded
+from ..ops.hashgrid_fast import EncodeRand
 from ..ops.sh import sh_encode
 from .mlp import apply_mlp, init_mlp
+from .nerf import encode_field
 
 
 @dataclass(frozen=True)
 class PaletteSpec:
     """Static model hyperparameters (the JAX package's spec without the background
-    net; the training-only encoder options, ``bg_radius > 0`` and the linear color
-    space raise when set)."""
+    net; ``bg_radius > 0`` and the linear color space raise when set)."""
 
     bound: float = 1.0
     num_basis: int = 4
@@ -72,10 +73,6 @@ class PaletteSpec:
             raise NotImplementedError("the background net (bg_radius > 0) is not ported yet")
         if self.color_space != "srgb":
             raise NotImplementedError(f"color_space={self.color_space} is not ported yet")
-        if self.fast_grad or self.stochastic_trilerp or self.grad_levels:
-            raise NotImplementedError(
-                "the training-only encoder options (fast_grad, stochastic_trilerp, "
-                "grad_levels) are not ported yet")
 
     @classmethod
     def build(cls, bound: float = 1.0, bg_radius: float = -1.0, num_basis: int = 4,
@@ -152,19 +149,16 @@ def initialize_palette(params: Params, spec: PaletteSpec, color_list=None,
     return params
 
 
-def _encode(params: Params, name: str, spec: PaletteSpec, x: torch.Tensor) -> torch.Tensor:
-    return hashgrid_encode_fast_bounded(params[name], x, spec.grid, spec.bound,
-                                        scatter_dtype=spec.scatter_dtype)
-
-
-def palette_density(params: Params, spec: PaletteSpec, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+def palette_density(params: Params, spec: PaletteSpec, x: torch.Tensor, training: bool = False,
+                    rand: Optional[EncodeRand] = None) -> Dict[str, torch.Tensor]:
     """x [..., 3] in [-bound, bound] -> dict(sigma [...], geo_feat [..., 15])."""
-    h = apply_mlp(params["sigma_net"], _encode(params, "encoder", spec, x))
+    h = apply_mlp(params["sigma_net"], encode_field(params["encoder"], spec, x, training, rand))
     return {"sigma": trunc_exp(h[..., 0]), "geo_feat": h[..., 1:]}
 
 
 def palette_color(params: Params, spec: PaletteSpec, x: torch.Tensor, d: torch.Tensor,
-                  geo_feat: torch.Tensor):
+                  geo_feat: torch.Tensor, training: bool = False,
+                  rand: Optional[EncodeRand] = None):
     """Palette heads (palette/network.py:223-280).
 
     Returns (omega [...,P], offsets_radiance [...,3P+1], view_dep [...,3], diffuse [...,3]).
@@ -173,7 +167,8 @@ def palette_color(params: Params, spec: PaletteSpec, x: torch.Tensor, d: torch.T
     diffuse = apply_mlp(params["diff_net"], geo, final_activation=torch.sigmoid)
     view_dep = palette_view_dep(params, spec, d, geo)
 
-    hp = torch.cat([_encode(params, "encoder_palette", spec, x), diffuse.detach()], -1)
+    hp = torch.cat([encode_field(params["encoder_palette"], spec, x, training, rand),
+                    diffuse.detach()], -1)
     palette_feat = apply_mlp(params["basis_net"], hp, activation=F.elu)
 
     offsets_radiance = apply_mlp(params["offsets_radiance_net"], palette_feat)
@@ -190,25 +185,27 @@ def palette_view_dep(params: Params, spec: PaletteSpec, d: torch.Tensor,
     return apply_mlp(params["color_net"], h, final_activation=torch.sigmoid)
 
 
-def palette_clip(params: Params, spec: PaletteSpec, x: torch.Tensor,
-                 like: torch.Tensor) -> torch.Tensor:
+def palette_clip(params: Params, spec: PaletteSpec, x: torch.Tensor, like: torch.Tensor,
+                 training: bool = False, rand: Optional[EncodeRand] = None) -> torch.Tensor:
     """clip features [..., clip_dim]: clip_net on encoder_clip with ``pred_clip``, else
     zeros shaped after ``like`` [...]."""
     if spec.pred_clip:
-        return apply_mlp(params["clip_net"], _encode(params, "encoder_clip", spec, x))
+        return apply_mlp(params["clip_net"],
+                         encode_field(params["encoder_clip"], spec, x, training, rand))
     return torch.zeros(like.shape + (spec.clip_dim,), dtype=like.dtype, device=like.device)
 
 
-def palette_forward(params: Params, spec: PaletteSpec, x: torch.Tensor, d: torch.Tensor):
+def palette_forward(params: Params, spec: PaletteSpec, x: torch.Tensor, d: torch.Tensor,
+                    training: bool = False, rand: Optional[EncodeRand] = None):
     """Full per-sample forward (palette/network.py:156-185).
 
     Returns (sigma, clip_feat, omega, offsets_radiance, view_dep, diffuse).
     """
-    dens = palette_density(params, spec, x)
+    dens = palette_density(params, spec, x, training, rand)
     sigma = dens["sigma"]
-    clip_feat = palette_clip(params, spec, x, sigma)
-    omega, offsets_radiance, view_dep, diffuse = palette_color(params, spec, x, d,
-                                                               dens["geo_feat"])
+    clip_feat = palette_clip(params, spec, x, sigma, training, rand)
+    omega, offsets_radiance, view_dep, diffuse = palette_color(
+        params, spec, x, d, dens["geo_feat"], training, rand)
     return sigma, clip_feat, omega, offsets_radiance, view_dep, diffuse
 
 

@@ -5,6 +5,9 @@ are the same integer/float arithmetic, so offsets and resolutions match exactly.
 ``hashgrid_encode`` is the plain reference (autograd through gather); the trained path
 uses ``ops/hashgrid_fast.py``.
 
+``gridtype="hash_xadd"`` (a hash of the JAX package, no reference analog) hashes
+``x + (y * pi1 ^ z * pi2)``: the x-neighbour of a row is the next row of its level.
+
 Hashing: the JAX code hashes in ``uint32`` with wraparound. PyTorch has little uint32
 arithmetic, so indices are computed in int64 and masked with ``& 0xFFFFFFFF`` after each
 multiply (XOR of two masked values stays in range); the result matches bit for bit.
@@ -32,7 +35,7 @@ class HashGridSpec:
     base_resolution: int = 16
     log2_hashmap_size: int = 19
     per_level_scale: float = 2.0
-    gridtype: str = "hash"  # "hash" | "tiled"
+    gridtype: str = "hash"  # "hash" | "tiled" | "hash_xadd"
     align_corners: bool = False
     offsets: Tuple[int, ...] = ()
     resolutions: Tuple[int, ...] = ()
@@ -50,8 +53,8 @@ class HashGridSpec:
         gridtype: str = "hash",
         align_corners: bool = False,
     ) -> "HashGridSpec":
-        if gridtype not in ("hash", "tiled"):
-            raise ValueError(f"gridtype {gridtype!r} is not ported (hash | tiled)")
+        if gridtype not in ("hash", "tiled", "hash_xadd"):
+            raise ValueError(f"unknown gridtype {gridtype!r} (hash | tiled | hash_xadd)")
         if desired_resolution is not None:
             per_level_scale = float(
                 2.0 ** (math.log2(desired_resolution / base_resolution) / (num_levels - 1))
@@ -101,7 +104,7 @@ class HashGridSpec:
         for _ in range(self.input_dim):
             strides.append(s if s <= size else None)
             s *= side
-        return size, strides, s > size and self.gridtype == "hash"
+        return size, strides, s > size and self.gridtype in ("hash", "hash_xadd")
 
 
 def init_hashgrid(spec: HashGridSpec, generator: torch.Generator,
@@ -118,8 +121,13 @@ def corner_index(spec: HashGridSpec, lvl: int, pg: torch.Tensor) -> torch.Tensor
     pg = pg.to(torch.int64) & _U32
     index = torch.zeros(pg.shape[:-1], dtype=torch.int64, device=pg.device)
     if hashed:
-        for d in range(spec.input_dim):
+        # hash_xadd: x enters additively, so corner (x + 1, y, z) is row index + 1 (mod
+        # size) and the two x-corners of a cell form one overlapped pair row
+        xadd = spec.gridtype == "hash_xadd"
+        for d in range(1 if xadd else 0, spec.input_dim):
             index = index ^ ((pg[..., d] * (PRIMES[d] & _U32)) & _U32)
+        if xadd:
+            index = (index + pg[..., 0]) & _U32
     else:
         for d, st in enumerate(strides):
             if st is not None:

@@ -1,27 +1,36 @@
 """Hash-grid encoder used for training and rendering, as a ``torch.autograd.Function``.
 
-Port of ``palettenerf_tpu/ops/hashgrid_fast.py`` (``hashgrid_encode_fast``), exact
-trilinear forward and exact all-corner backward:
+Port of ``palettenerf_tpu/ops/hashgrid_fast.py`` (``hashgrid_encode_fast``) with its
+whole mode matrix:
 
-- Forward: the global (concatenated-table) indices and trilinear weights of all
-  ``L * 2^D`` corners of every point are computed in one vector pass over levels,
-  then ONE flat gather over the table (``_encode_T``, hashgrid_fast.py:320-332).
-- Backward (``_bwd``, :529-545): the cotangent of every (point, level) is spread to
-  its corners by weight and scatter-added into the table gradient in one call
-  (``_scatter_global``, :409-434). With ``scatter_dtype=torch.bfloat16`` (``-O``) the
-  updates are rounded to bf16 and go through the CUDA scatter kernel
-  (``ops/scatter.py``); otherwise an f32 ``index_add_`` (the JAX package's
-  counterpart there is a plain XLA scatter, not a Pallas kernel).
+- Exact forward: the global (concatenated-table) indices and trilinear weights of all
+  corners of every point are computed in one vector pass over levels, then ONE flat
+  gather over the table (``_encode_T``, hashgrid_fast.py:320-332). For
+  ``gridtype="hash_xadd"`` the two x-corners of a cell are neighbouring rows, so the
+  gather reads K = 4 rows of the overlapped pair table (``pair_table``) per (point,
+  level), interpolates along x inside the wide row, then weights by y and z (:269-283).
+- Stochastic forward (``stochastic``, :286-318): one corner (one x-pair for
+  ``hash_xadd``) per (point, level), drawn with probability equal to its weight by an
+  inverse-CDF select over the uniforms ``rand.u`` [M, L] (``make_encode_rand``), or over
+  a position hash when ``rand`` is None.
+- Backward (``_bwd``, :459-545): the cotangent of every (point, level) goes to its
+  corners by weight (exact), to its drawn row (``stochastic``; for pairs the x1 row with
+  probability fx), or to its largest-weight corner (``nearest_corner_grad``); with
+  ``grad_levels`` only the levels ``rand.lvls`` are scattered, scaled by L/K. Each mode
+  ends in ONE scatter-add into the table gradient (``scatter_table_grad``). With
+  ``scatter_dtype=torch.bfloat16`` (``-O``, ``-O2``) the updates are rounded to bf16
+  and go through the CUDA scatter kernel (``ops/scatter.py``); otherwise an f32
+  ``index_add_`` (the JAX package's counterpart there is a plain XLA scatter).
 
-The ``-O2`` modes (stochastic corner draw, ``grad_levels``, nearest-corner backward)
-and ``hash_xadd`` are not ported yet. The TPU-only chunking and transposed layout of
-the JAX version are not needed here.
+The TPU-only chunking and transposed layout of the JAX version are not needed here.
+Every result has the JAX version's rounding order: corners are accumulated, and the
+stochastic draw's weight sum is built, corner by corner in f32.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -29,12 +38,42 @@ from .hashgrid import PRIMES, HashGridSpec
 from .scatter import scatter_add
 
 _U32 = 0xFFFFFFFF
+# Below this many columns per point the scatter kernel's column walk leaves over half the
+# lanes of a warp idle (a warp walks 32 columns), so such streams go in their own order.
+# On the -O2 (8 columns) and --fast_grad (16) streams the two orders time within their
+# run-to-run spread on the H100 (chip_smoke.py; PERF.md).
+MIN_COLUMN_PERIOD = 16
+
+
+class EncodeRand(NamedTuple):
+    """Per-call randomness of the stochastic paths.
+
+    u:    [M, L] uniforms for the corner draw (None: the position-hash fallback).
+    lvls: [K] int64 level subset of the backward scatter (None: all levels).
+    """
+
+    u: Optional[torch.Tensor] = None
+    lvls: Optional[torch.Tensor] = None
+
+
+def make_encode_rand(generator: torch.Generator, n_samples: int, spec: HashGridSpec,
+                     grad_levels: int = 0) -> EncodeRand:
+    """Draw one call's randomness from ``generator`` (on its device): ``u`` first, then
+    the permutation whose first ``grad_levels`` entries are ``lvls``."""
+    dev = generator.device
+    L = spec.num_levels
+    u = torch.rand((n_samples, L), generator=generator, device=dev)
+    lvls = None
+    if grad_levels and grad_levels < L:
+        lvls = torch.randperm(L, generator=generator, device=dev)[:grad_levels]
+    return EncodeRand(u=u, lvls=lvls)
 
 
 @functools.lru_cache(maxsize=None)
 def _level_constants(spec: HashGridSpec, device: torch.device):
-    """Per-level [L] tensors: scale (f32), table size, offset, hashed?, strides [L, D].
-    Made once per (spec, device): an upload per encode would stall the launch queue."""
+    """Per-level [L] tensors: scale (f32), table size, offset, hashed?, strides [L, D],
+    and the L + 1 offsets. Made once per (spec, device): an upload per encode would stall
+    the launch queue."""
     scales, sizes, offs, hashed, strides = [], [], [], [], []
     for lvl in range(spec.num_levels):
         size, st, h = spec.level_layout(lvl)
@@ -47,38 +86,147 @@ def _level_constants(spec: HashGridSpec, device: torch.device):
     return (torch.tensor(scales, dtype=torch.float32, device=device),
             torch.tensor(sizes, **i64), torch.tensor(offs, **i64),
             torch.tensor(hashed, dtype=torch.bool, device=device),
-            torch.tensor(strides, **i64))
+            torch.tensor(strides, **i64), torch.tensor(spec.offsets, **i64))
+
+
+def _pairs(spec: HashGridSpec) -> bool:
+    return spec.gridtype == "hash_xadd"
+
+
+def _corner_bits(spec: HashGridSpec):
+    """Per-dimension offsets of each corner the forward reads. ``hash_xadd`` reads the
+    x0 row of each of the 2^(D-1) (y, z) corners (the pair row holds x1 beside it)."""
+    D = spec.input_dim
+    if _pairs(spec):
+        return [[0] + [(k >> i) & 1 for i in range(D - 1)] for k in range(2 ** (D - 1))]
+    return [[(k >> d) & 1 for d in range(D)] for k in range(2 ** D)]
+
+
+def _geometry(spec: HashGridSpec, consts, x: torch.Tensor):
+    """x [M, D] -> (cell origin [M, L, D] int64, position in the cell [M, L, D] f32)."""
+    pos = x[:, None, :] * consts[0][None, :, None] + (0.0 if spec.align_corners else 0.5)
+    pg0f = torch.floor(pos)
+    return pg0f.to(torch.int64), pos - pg0f
+
+
+def _corner(spec: HashGridSpec, consts, pg0, frac, bits):
+    """Global row [M, L] int64 and weight [M, L] f32 of one corner."""
+    _, sizes, offs, hashed, strides, _ = consts
+    xadd = _pairs(spec)
+    lin = torch.zeros(pg0.shape[:2], dtype=torch.int64, device=pg0.device)
+    h = torch.zeros_like(lin)
+    w = torch.ones(frac.shape[:2], dtype=torch.float32, device=frac.device)
+    for d in range(spec.input_dim):
+        p = (pg0[..., d] + bits[d]) & _U32
+        lin = (lin + p * strides[:, d]) & _U32
+        if not (xadd and d == 0):
+            h = h ^ ((p * (PRIMES[d] & _U32)) & _U32)
+            w = w * (frac[..., d] if bits[d] else 1.0 - frac[..., d])
+    if xadd:
+        h = (h + ((pg0[..., 0] + bits[0]) & _U32)) & _U32
+    return torch.where(hashed, h, lin) % sizes + offs, w
 
 
 def corner_indices(spec: HashGridSpec, x: torch.Tensor):
-    """x [M, D] in [0, 1] -> (idx [M, L*2^D] int32 global table rows, w [M, L*2^D] f32).
+    """x [M, D] in [0, 1] -> (idx [M, L*K] int32 global table rows, w [M, L*K] f32).
 
-    Columns are level-major (``l * 2^D + k``); corner ``k`` takes bit ``d`` of ``k``
-    as its offset along dimension ``d`` — the residual layout of the JAX encoder.
+    Columns are level-major (``l * K + k``); corner ``k`` takes bit ``d`` of ``k`` as its
+    offset along dimension ``d`` — the residual layout of the JAX encoder. For
+    ``hash_xadd`` K = 2^(D-1): the x0 rows of the (y, z) corners, weighted by y and z.
     """
-    D, L = spec.input_dim, spec.num_levels
-    K = 2 ** D
-    scales, sizes, offs, hashed, strides = _level_constants(spec, x.device)  # read-only
-    pos = x[:, None, :] * scales[None, :, None] + (0.0 if spec.align_corners else 0.5)
-    pg0f = torch.floor(pos)
-    frac = pos - pg0f                                    # [M, L, D]
-    pg0 = pg0f.to(torch.int64)
-    idxs, ws = [], []
-    for corner in range(K):
-        bits = [(corner >> d) & 1 for d in range(D)]
-        w = torch.ones(frac.shape[:2], dtype=torch.float32, device=x.device)
-        lin = torch.zeros(frac.shape[:2], dtype=torch.int64, device=x.device)
-        h = torch.zeros_like(lin)
-        for d in range(D):
-            w = w * (frac[..., d] if bits[d] else 1.0 - frac[..., d])
-            p = (pg0[..., d] + bits[d]) & _U32
-            lin = (lin + p * strides[:, d]) & _U32
-            h = h ^ ((p * (PRIMES[d] & _U32)) & _U32)
-        idx = torch.where(hashed, h, lin) % sizes + offs  # [M, L]
-        idxs.append(idx.to(torch.int32))
-        ws.append(w)
+    consts = _level_constants(spec, x.device)
+    pg0, frac = _geometry(spec, consts, x)
+    idxs, ws = zip(*(_corner(spec, consts, pg0, frac, b) for b in _corner_bits(spec)))
+    M, K = x.shape[0], len(idxs)
+    L = spec.num_levels
+    return (torch.stack(idxs, -1).to(torch.int32).reshape(M, L * K),
+            torch.stack(ws, -1).reshape(M, L * K))
+
+
+def pair_table(table: torch.Tensor, spec: HashGridSpec) -> torch.Tensor:
+    """[total, C] -> [total, 2C] overlapped x-pair view: row q = [T[q], T[q + 1]].
+
+    The +1 neighbour wraps within each level segment (the ``% size`` of the additive-x
+    hash; linear levels never address a wrapping base row)."""
+    parts = []
+    for lvl in range(spec.num_levels):
+        seg = table[spec.offsets[lvl]:spec.offsets[lvl + 1]]
+        parts.append(torch.cat([seg, torch.roll(seg, -1, dims=0)], dim=1))
+    return torch.cat(parts, dim=0)
+
+
+def _wrap_plus_one(idx: torch.Tensor, spec: HashGridSpec, lvl_ids: torch.Tensor):
+    """Level-local +1 neighbour of global rows ``idx`` whose level is ``lvl_ids``
+    (broadcast against idx): the pair row's second half, as ``pair_table`` rolls it."""
+    offsets = _level_constants(spec, idx.device)[5]
+    lo = offsets[lvl_ids]
+    return lo + (idx.to(torch.int64) - lo + 1) % (offsets[lvl_ids + 1] - lo)
+
+
+def _position_hash_u(frac: torch.Tensor) -> torch.Tensor:
+    """[M, L] uniforms from a hash of the finest level's cell position, mixed with the
+    level index (the JAX fallback without ``rand``, :287-296)."""
+    M, L, D = frac.shape
+    coef = torch.tensor([12.9898, 78.233, 37.719][:D], dtype=torch.float32, device=frac.device)
+    base = 0
+    for d in range(D):
+        base = base + frac[:, L - 1, d] * coef[d]
+    lvl = torch.arange(L, dtype=torch.float32, device=frac.device)[None, :]
+    s = torch.sin(base[:, None] + lvl * 1.6180339887) * 43758.5453
+    return s - torch.floor(s)
+
+
+def _encode(table, spec: HashGridSpec, x, u, stochastic: bool):
+    """x [M, D] -> (out [M, L*C], residuals). Residuals: exact (idx [M, L, K] int32,
+    w [M, L, K], fx [M, L] for pairs, None); stochastic (drawn idx [M, L] int32, None,
+    fx, rem [M, L] for pairs: the x-corner variate of the backward)."""
+    C, L = spec.level_dim, spec.num_levels
     M = x.shape[0]
-    return (torch.stack(idxs, -1).reshape(M, L * K), torch.stack(ws, -1).reshape(M, L * K))
+    pairs = _pairs(spec)
+    consts = _level_constants(spec, x.device)
+    pg0, frac = _geometry(spec, consts, x)
+    fx = frac[..., 0] if pairs else None
+    src = pair_table(table, spec) if pairs else table
+
+    def interp(rows):
+        """Gathered rows [..., Csrc] -> features [..., C] (x-interpolation for pairs)."""
+        if not pairs:
+            return rows
+        f = fx[..., None].to(rows.dtype)
+        return rows[..., :C] * (1 - f) + rows[..., C:] * f
+
+    corners = [_corner(spec, consts, pg0, frac, b) for b in _corner_bits(spec)]
+    rem = w = None
+    if stochastic:
+        if u is None:
+            u = _position_hash_u(frac)
+        csum = torch.zeros((M, L), dtype=torch.float32, device=x.device)
+        for k, (idx_k, w_k) in enumerate(corners):
+            if k == 0:
+                chosen, prev, wsel = idx_k, csum, w_k
+            else:  # the last corner k with u >= sum_{j<k} w_j wins
+                sel = u >= csum
+                chosen = torch.where(sel, idx_k, chosen)
+                prev = torch.where(sel, csum, prev)
+                wsel = torch.where(sel, w_k, wsel)
+            csum = csum + w_k
+        idx = chosen.to(torch.int32)
+        acc = interp(src.index_select(0, idx.reshape(-1)).reshape(M, L, src.shape[1]))
+        if pairs:
+            rem = ((u - prev) / wsel.clamp_min(1e-9)).clamp(0.0, 1.0 - 1e-6)
+    else:
+        K = len(corners)
+        idx = torch.stack([c[0] for c in corners], -1).to(torch.int32)     # [M, L, K]
+        w = torch.stack([c[1] for c in corners], -1)
+        rows = src.index_select(0, idx.reshape(-1)).reshape(M, L, K, src.shape[1])
+        wt = w.to(table.dtype)
+        acc = torch.zeros((M, L, C), dtype=table.dtype, device=table.device)
+        for k in range(K):  # corner order of the JAX encoder's accumulation
+            acc = acc + interp(rows[:, :, k]) * wt[:, :, k, None]
+    oob = ((x < 0.0) | (x > 1.0)).any(-1)
+    out = torch.where(oob[:, None], torch.zeros((), dtype=acc.dtype, device=acc.device),
+                      acc.reshape(M, L * C))
+    return out, (idx, w, fx, rem, oob)
 
 
 def scatter_table_grad(idx: torch.Tensor, upd: torch.Tensor, total_rows: int,
@@ -87,11 +235,14 @@ def scatter_table_grad(idx: torch.Tensor, upd: torch.Tensor, total_rows: int,
     """One batched scatter-add of updates upd [U, C] at rows idx [U] (``_scatter_global``).
 
     bf16: updates rounded to bf16, summed in f32 by the scatter kernel (CPU: its plain
-    version). Otherwise an f32 ``index_add_``. ``period``: the number of corner columns
-    per point when idx is ``[M, period]`` flattened; the kernel then works through the
-    table a few levels at a time (``ops/scatter.py``).
+    version). Otherwise an f32 ``index_add_``. ``period``: the number of columns per
+    point when idx is ``[M, period]`` flattened; with at least ``MIN_COLUMN_PERIOD`` of
+    them the kernel works through the table a few levels at a time (``ops/scatter.py``),
+    with fewer it takes the stream in its own order.
     """
     if scatter_dtype == torch.bfloat16:
+        if period is not None and period < MIN_COLUMN_PERIOD:
+            period = None
         return scatter_add(idx, upd.to(torch.bfloat16).contiguous(), total_rows, period)
     if scatter_dtype not in (None, torch.float32):
         raise ValueError(f"unsupported scatter_dtype {scatter_dtype}")
@@ -99,52 +250,103 @@ def scatter_table_grad(idx: torch.Tensor, upd: torch.Tensor, total_rows: int,
     return out.index_add_(0, idx.long(), upd.float())
 
 
+def _backward_stream(spec: HashGridSpec, residuals, lvls, g, nearest_corner_grad: bool,
+                     stochastic: bool, grad_levels: int):
+    """The rows [U] int32, updates [U, C] and columns per point of the table gradient's
+    one scatter (``_bwd``, hashgrid_fast.py:459-545)."""
+    idx, w, fx, rem, oob = residuals
+    C, L = spec.level_dim, spec.num_levels
+    pairs = _pairs(spec)
+    M = oob.shape[0]
+    g = g.reshape(M, L, C).masked_fill(oob[:, None, None], 0)
+    if grad_levels and grad_levels < L and lvls is not None:
+        g = g[:, lvls] * (L / float(grad_levels))
+        lvl_ids = lvls
+        sel = lambda a: a[:, lvls]  # noqa: E731
+    else:
+        lvl_ids = torch.arange(L, device=g.device)
+        sel = lambda a: a  # noqa: E731
+    Leff = g.shape[1]
+
+    if stochastic or nearest_corner_grad:
+        if stochastic:
+            rows = sel(idx)                                        # [M, Leff]
+            x1 = (sel(rem) < sel(fx)) if pairs else None           # P(x1) = fx
+        else:
+            idx_s = sel(idx)                                       # [M, Leff, K]
+            best = torch.argmax(sel(w), dim=-1, keepdim=True)      # first index on ties
+            rows = torch.gather(idx_s, -1, best)[..., 0]
+            x1 = (sel(fx) > 0.5) if pairs else None                # the nearer x-corner
+        if pairs:
+            rows = torch.where(x1, _wrap_plus_one(rows, spec, lvl_ids), rows.to(torch.int64))
+        return rows.reshape(-1).to(torch.int32), g.reshape(M * Leff, C), Leff
+
+    idx_s = sel(idx)                                               # [M, Leff, K]
+    K = idx_s.shape[-1]
+    gw = g[:, :, None, :] * sel(w)[..., None]                      # [M, Leff, K, C]
+    if pairs:
+        # both x-corners of every base pair, as two C-wide halves of one stream
+        f = sel(fx)[:, :, None, None]
+        rows = torch.cat([idx_s.reshape(-1).to(torch.int64),
+                          _wrap_plus_one(idx_s, spec, lvl_ids[:, None]).reshape(-1)])
+        upd = torch.cat([(gw * (1 - f)).reshape(-1, C), (gw * f).reshape(-1, C)])
+        return rows.to(torch.int32), upd, Leff * K
+    return idx_s.reshape(-1), gw.reshape(-1, C), Leff * K
+
+
 class _HashGridEncode(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, x, spec, scatter_dtype):
-        D, C, L = spec.input_dim, spec.level_dim, spec.num_levels
-        K = 2 ** D
-        M = x.shape[0]
-        oob = ((x < 0.0) | (x > 1.0)).any(-1)
-        idx, w = corner_indices(spec, x)
-        rows = table.index_select(0, idx.reshape(-1)).reshape(M, L, K, C)
-        acc = torch.zeros((M, L, C), dtype=table.dtype, device=table.device)
-        wt = w.reshape(M, L, K, 1).to(table.dtype)
-        for k in range(K):  # corner order of the JAX encoder's accumulation
-            acc = acc + rows[:, :, k] * wt[:, :, k]
-        out = torch.where(oob[:, None], torch.zeros((), dtype=acc.dtype, device=acc.device),
-                          acc.reshape(M, L * C))
-        ctx.save_for_backward(idx, w, oob)
-        ctx.spec, ctx.scatter_dtype = spec, scatter_dtype
-        ctx.table_dtype = table.dtype
+    def forward(ctx, table, x, u, lvls, spec, scatter_dtype, nearest_corner_grad,
+                stochastic, grad_levels):
+        out, (idx, w, fx, rem, oob) = _encode(table, spec, x, u, stochastic)
+        ctx.save_for_backward(idx, w, fx, rem, oob, lvls)
+        ctx.spec, ctx.scatter_dtype, ctx.table_dtype = spec, scatter_dtype, table.dtype
+        ctx.modes = (nearest_corner_grad, stochastic, grad_levels)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        idx, w, oob = ctx.saved_tensors
+        idx, w, fx, rem, oob, lvls = ctx.saved_tensors
         spec = ctx.spec
-        C, L = spec.level_dim, spec.num_levels
-        K = 2 ** spec.input_dim
-        M = idx.shape[0]
-        g = g.reshape(M, L, C).masked_fill(oob[:, None, None], 0)
-        upd = (g[:, :, None, :] * w.reshape(M, L, K, 1)).reshape(M * L * K, C)
-        grad = scatter_table_grad(idx.reshape(-1), upd, spec.total_params, ctx.scatter_dtype,
-                                  period=L * K)
-        return grad.to(ctx.table_dtype), None, None, None
+        rows, upd, period = _backward_stream(spec, (idx, w, fx, rem, oob), lvls, g,
+                                             *ctx.modes)
+        grad = scatter_table_grad(rows.contiguous(), upd, spec.total_params,
+                                  ctx.scatter_dtype, period=period)
+        return (grad.to(ctx.table_dtype),) + (None,) * 8
 
 
 def hashgrid_encode_fast(table: torch.Tensor, x01: torch.Tensor, spec: HashGridSpec,
-                         scatter_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                         scatter_dtype: Optional[torch.dtype] = None,
+                         nearest_corner_grad: bool = False, stochastic: bool = False,
+                         rand: Optional[EncodeRand] = None,
+                         grad_levels: int = 0) -> torch.Tensor:
     """table [total, C]; x01 [..., D] in [0, 1] -> [..., L*C]. Differentiable in
-    ``table`` only (as the JAX encoder). ``scatter_dtype=torch.bfloat16`` is the
-    ``-O`` backward."""
+    ``table`` only (as the JAX encoder).
+
+    ``scatter_dtype=torch.bfloat16`` is the ``-O`` backward. ``nearest_corner_grad``:
+    the backward routes each (point, level) to its largest-weight corner only (biased;
+    the forward stays exact). ``stochastic``: the Monte-Carlo corner draw of the forward
+    (training only), whose backward goes to the drawn row. ``rand``: the draws of
+    ``make_encode_rand`` (u [..., L] for the corner draw, lvls for ``grad_levels``).
+    ``grad_levels``: the backward scatters the K levels ``rand.lvls`` only, scaled by
+    L/K (all levels without ``rand.lvls``).
+    """
+    L = spec.num_levels
     lead = x01.shape[:-1]
     x = x01.reshape(-1, spec.input_dim).to(torch.float32)
-    out = _HashGridEncode.apply(table, x, spec, scatter_dtype)
+    u = lvls = None
+    if rand is not None:
+        u = None if rand.u is None else rand.u.reshape(-1, L)
+        lvls = rand.lvls
+    out = _HashGridEncode.apply(table, x, u, lvls, spec, scatter_dtype,
+                                bool(nearest_corner_grad), bool(stochastic), int(grad_levels))
     return out.reshape(*lead, spec.output_dim)
 
 
 def hashgrid_encode_fast_bounded(table, x, spec: HashGridSpec, bound: float,
-                                 scatter_dtype: Optional[torch.dtype] = None):
+                                 scatter_dtype: Optional[torch.dtype] = None,
+                                 nearest_corner_grad: bool = False, stochastic: bool = False,
+                                 rand: Optional[EncodeRand] = None, grad_levels: int = 0):
     """Encode world positions in [-bound, bound] (grid.py:138-150)."""
-    return hashgrid_encode_fast(table, (x + bound) / (2.0 * bound), spec, scatter_dtype)
+    return hashgrid_encode_fast(table, (x + bound) / (2.0 * bound), spec, scatter_dtype,
+                                nearest_corner_grad, stochastic, rand, grad_levels)

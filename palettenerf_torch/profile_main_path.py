@@ -14,9 +14,11 @@
   stylized frame and a 16-step training burst.
 
 The palette, serve and edit parts default to the workspaces ``chip_smoke.py`` trains
-(full width), so run it first.
+(full width), so run it first. ``--O2`` trains (train, palette) with ``-O2`` in place of
+``-O``: the stochastic trilerp, the nearest-corner / drawn-row backward and 8 of 16
+levels scattered per step.
 
-    python -m palettenerf_torch.profile_main_path [--steps_warmup 100]
+    python -m palettenerf_torch.profile_main_path [--steps_warmup 100] [--O2]
         [--only train|palette|serve|edit] [--serve_ckpt PATH] [--palette_ws DIR]
         [--nerf_ws DIR]
 
@@ -69,18 +71,28 @@ def _profile(what: str, fn, top: int = 15):
               f"device time per launch ({own[0].name[:60]})")
 
 
+def _args(a):
+    """The proc_toys flags, with -O2 in place of -O under ``--O2``."""
+    return [("-O2" if a.O2 and v == "-O" else v) for v in ARGS]
+
+
+def _profile_flags(cfg) -> dict:
+    return dict(fp16=cfg.fp16_enabled, fast_grad=cfg.fast_grad,
+                stochastic_trilerp=cfg.stochastic_trilerp, grad_levels=cfg.grad_levels)
+
+
 def profile_train(a):
-    cfg = Config.from_args(build_parser().parse_args(ARGS))
-    spec = NeRFSpec.build(bound=cfg.bound, bg_radius=cfg.bg_radius, fp16=cfg.fp16_enabled,
+    cfg = Config.from_args(build_parser().parse_args(_args(a)))
+    spec = NeRFSpec.build(bound=cfg.bound, bg_radius=cfg.bg_radius,
                           log2_hashmap_size=cfg.log2_hashmap_size,
-                          grid_levels=cfg.grid_levels)
+                          grid_levels=cfg.grid_levels, **_profile_flags(cfg))
     train_ds = NeRFDataset(cfg, type="train")
     valid_ds = NeRFDataset(cfg, type="val")
     tr = Trainer("ngp", cfg, spec, workspace=os.path.join(_ROOT, "results", "profile"),
                  use_checkpoint="scratch", mute=True, device="cuda")
     tr.train(train_ds, None, max(1, a.steps_warmup // len(train_ds)))
     tr.epoch += 1
-    _profile(f"train epoch ({len(train_ds)} steps, step {tr.global_step}+)",
+    _profile(f"train epoch {_args(a)[1]} ({len(train_ds)} steps, step {tr.global_step}+)",
              lambda: tr.train_one_epoch(train_ds))
     data = valid_ds.collate(0)
     tr.eval_step_full(data)
@@ -98,10 +110,10 @@ def profile_palette(a):
     pal_dir = os.path.join(os.path.dirname(a.palette_ws),
                            "normalized_" + os.path.basename(a.nerf_ws))
     P = int(np.load(os.path.join(pal_dir, "palette.npz"))["palette"].shape[0])
-    argv = [ARGS[0], a.nerf_ws] + ARGS[1:] + ["--use_initialization_from_rgbxy",
-                                               "--dt_gamma", "0", "--num_basis", str(P)]
+    argv = [ARGS[0], a.nerf_ws] + _args(a)[1:] + ["--use_initialization_from_rgbxy",
+                                                   "--dt_gamma", "0", "--num_basis", str(P)]
     cfg = Config.from_args(main_palette.build_parser().parse_args(argv))
-    spec = PaletteSpec.build(bound=cfg.bound, num_basis=P, fp16=True)
+    spec = PaletteSpec.build(bound=cfg.bound, num_basis=P, **_profile_flags(cfg))
     tr = PaletteTrainer("palette", cfg, spec, workspace=a.palette_ws, use_checkpoint="latest",
                         nerf_path=None, mute=True, device="cuda")
     if tr.global_step == 0:
@@ -110,7 +122,8 @@ def profile_palette(a):
     tr.lambda_palette = cfg.lambda_palette
     train_ds = PaletteDataset(cfg, type="train")
     tr.train_one_epoch(train_ds)
-    _profile(f"palette train epoch ({len(train_ds)} steps, smooth loss, colors unfrozen, "
+    _profile(f"palette train epoch {_args(a)[1]} ({len(train_ds)} steps, smooth loss, "
+             f"colors unfrozen, "
              f"step {tr.global_step}+)", lambda: tr.train_one_epoch(train_ds))
     data = PaletteDataset(cfg, type="val").collate(0)
     tr.eval_step_full(data)
@@ -178,6 +191,7 @@ def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--steps_warmup", type=int, default=100)
     p.add_argument("--only", choices=["train", "palette", "serve", "edit"], default=None)
+    p.add_argument("--O2", action="store_true", help="train and palette with -O2")
     pal_ws = os.path.join(_ROOT, "results_palette", "chip_smoke", "version_1")
     p.add_argument("--serve_ckpt", default=pal_ws,
                    help="palette checkpoint or directory to serve")

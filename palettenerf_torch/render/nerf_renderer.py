@@ -5,9 +5,10 @@ Port of ``palettenerf_tpu/render/nerf_renderer.py``:
     near/far -> closed-form candidate march (ops.march) -> network over [N*S] samples
              -> masked composite (ops.composite)
 
-``render_nerf_train`` (:142-217) is differentiable; its march jitter ``noise`` [N] and
-background ``bg_color`` are arguments (drawn by the trainer). ``render_nerf_eval``
-(:414-475) renders without jitter; with ``compaction_rounds`` it dispatches to
+``render_nerf_train`` (:142-217) is differentiable; its march jitter ``noise`` [N],
+background ``bg_color`` and encode draws ``rand`` (``models.nerf.encode_rand_for`` over
+all N*S sample slots, padding included) are arguments (drawn by the trainer).
+``render_nerf_eval`` (:414-475) renders without jitter; with ``compaction_rounds`` it dispatches to
 ``render_nerf_eval_compact`` (:299-411), the fixed-schedule version of the
 reference's alive-ray loop. Sample compaction (``compact_frac``), the hierarchical
 march, the fine eval grid and the background net are not ported yet.
@@ -23,6 +24,7 @@ import torch
 
 from ..models.nerf import NeRFSpec, Params, nerf_forward
 from ..ops.composite import composite_rays, composite_weights
+from ..ops.hashgrid_fast import EncodeRand
 from ..ops.march import march_rays
 from ..ops.rays import near_far_from_aabb
 
@@ -77,8 +79,12 @@ def render_nerf_train(
     bg_color: Optional[torch.Tensor] = None,
     rays_gt: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
+    rand: Optional[EncodeRand] = None,
 ):
-    """Differentiable render of a flat ray batch [N, 3].
+    """Differentiable render of a flat ray batch [N, 3]. The network runs in training
+    mode (``-O2``: the stochastic trilerp and level subsampling over ``rand``, whose ``u``
+    has N * num_samples rows; without ``rand`` the corner draw hashes the positions and
+    every level is scattered).
 
     Returns dict(image [N,3], depth [N], weights_sum [N], rgb_norm [N]).
     """
@@ -88,7 +94,8 @@ def render_nerf_train(
     bg = _background(bg_color, rays_o.device)
     m = _march(rays_o, rays_d, nears, fars, bitfield, settings, settings.num_samples, noise)
     dirs = rays_d[:, None, :].expand_as(m.xyzs)
-    sigmas, rgbs = nerf_forward(params, spec, m.xyzs.reshape(-1, 3), dirs.reshape(-1, 3))
+    sigmas, rgbs = nerf_forward(params, spec, m.xyzs.reshape(-1, 3), dirs.reshape(-1, 3),
+                                training=True, rand=rand)
     sigmas = sigmas.reshape(n, -1) * settings.density_scale
     rgbs = rgbs.reshape(n, -1, 3)
 

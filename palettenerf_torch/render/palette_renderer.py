@@ -16,7 +16,9 @@ semantic Gaussian masks (:83-147), the ``Stylizer`` style transfer (:151-183), a
 scalar ``offsets_weight`` / ``view_dep_weight`` dials (:484, :494).
 
 Where the JAX functions draw from a key, these take the draws as arguments: the march
-jitter ``noise`` [N] and the smooth-loss jitter ``jit_u`` [N*S, 3].
+jitter ``noise`` [N], the smooth-loss jitter ``jit_u`` [N*S, 3] and the encode draws
+``rand`` (``models.nerf.encode_rand_for`` over the N*S slots), which every encoder of the
+step shares, the smooth loss's jittered pass included.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch.nn.functional as F
 from ..models.palette import (PaletteSpec, palette_clip, palette_color, palette_density,
                               palette_forward)
 from ..ops.composite import composite_channels, composite_weights
+from ..ops.hashgrid_fast import EncodeRand
 from ..ops.rays import near_far_from_aabb
 from ..utils.color import hsv_to_rgb, rgb_to_hsv
 from .nerf_renderer import RenderSettings, _aabb, _background, _march
@@ -168,15 +171,18 @@ def clip01(x: torch.Tensor) -> torch.Tensor:
     return _Clip01.apply(x)
 
 
-def _train_forward(params, spec: PaletteSpec, x: torch.Tensor, d: torch.Tensor):
-    """``palette_forward`` for the train render, with the density branch outside autograd.
-    The render detaches sigma and the model detaches the geo feature, so no gradient can
-    reach ``encoder`` or ``sigma_net``: the values are the same, and autograd neither
-    keeps that encode's corner indices nor scatters a gradient of zeros for it."""
+def _train_forward(params, spec: PaletteSpec, x: torch.Tensor, d: torch.Tensor,
+                   rand: Optional[EncodeRand]):
+    """``palette_forward(training=True)`` for the train render, with the density branch
+    outside autograd. The render detaches sigma and the model detaches the geo feature,
+    so no gradient can reach ``encoder`` or ``sigma_net``: the values are the same (under
+    ``-O2`` that branch's forward is stochastic, as in JAX), and autograd neither keeps
+    that encode's corner indices nor scatters a gradient of zeros for it."""
     with torch.no_grad():
-        dens = palette_density(params, spec, x)
-    clip_feat = palette_clip(params, spec, x, dens["sigma"])
-    return (dens["sigma"], clip_feat) + palette_color(params, spec, x, d, dens["geo_feat"])
+        dens = palette_density(params, spec, x, True, rand)
+    clip_feat = palette_clip(params, spec, x, dens["sigma"], True, rand)
+    return (dens["sigma"], clip_feat) + palette_color(params, spec, x, d, dens["geo_feat"],
+                                                      True, rand)
 
 
 def render_palette_train(
@@ -191,16 +197,18 @@ def render_palette_train(
     require_smooth_loss: bool = False,
     noise: Optional[torch.Tensor] = None,
     jit_u: Optional[torch.Tensor] = None,
+    rand: Optional[EncodeRand] = None,
 ):
     """Differentiable palette train render (palette/renderer.py:321-429).
 
     ``noise`` [N] jitters the march (None: no jitter); ``jit_u`` [N*S, 3] in [0, 1) is the
-    smooth loss's position jitter, needed with ``require_smooth_loss``. Returns the
-    reference's full result dict: image, depth, weights_sum, plus the composited aux maps
-    (omega_sparsity, view_dep_norm, offsets_norm, smooth_norm, view_dep_rgb, direct_rgb,
-    diffuse_rgb, clip_feat, basis_acc). Sigma and the geo feature carry no gradient, so
-    ``encoder`` and ``sigma_net`` get none. A padded sample slot has weight zero and adds
-    exactly zero to every map.
+    smooth loss's position jitter, needed with ``require_smooth_loss``; ``rand`` the
+    encode draws of every encoder of both passes (None: see ``render_nerf_train``).
+    Returns the reference's full result dict: image, depth, weights_sum, plus the
+    composited aux maps (omega_sparsity, view_dep_norm, offsets_norm, smooth_norm,
+    view_dep_rgb, direct_rgb, diffuse_rgb, clip_feat, basis_acc). Sigma and the geo
+    feature carry no gradient, so ``encoder`` and ``sigma_net`` get none. A padded sample
+    slot has weight zero and adds exactly zero to every map.
     """
     n = rays_o.shape[0]
     P = spec.num_basis
@@ -215,7 +223,7 @@ def render_palette_train(
     M = x.shape[0]
 
     sigma, clip_feat, omega, offsets_radiance, view_dep, diffuse = _train_forward(
-        params, spec, x, d)
+        params, spec, x, d, rand)
     sigma = sigma * settings.density_scale                    # detached: renderer.py:334-335
 
     offsets = offsets_radiance[..., :-1].reshape(M, P, 3)
@@ -237,7 +245,7 @@ def render_palette_train(
         if jit_u is None:
             raise ValueError("require_smooth_loss needs jit_u [N*S, 3]")
         x_diff = (x + jit_u * b * 0.03).clamp(-b, b)
-        _, clip_d, omega_d, _, _, diffuse_d = _train_forward(params, spec, x_diff, d)
+        _, clip_d, omega_d, _, _, diffuse_d = _train_forward(params, spec, x_diff, d, rand)
         with torch.no_grad():
             xyz_w = ((x - x_diff) ** 2).sum(-1, keepdim=True) / b ** 2 / spec.smooth_sigma_xyz
             rgb_w = ((diffuse - diffuse_d) ** 2).sum(-1, keepdim=True) / spec.smooth_sigma_color

@@ -9,12 +9,15 @@ Port of ``palettenerf_tpu/train/palette_trainer.py`` (reference ``PaletteTrainer
 - loss (:486-571): MSE(image) + MSE(direct_rgb) [+ MSE(clip_feat)]
   + lambda_sparsity * omega_sparsity + lambda_offsets * |offsets|^2
   + lambda_view_dep * |view_dep|^2 + lambda_smooth * smooth
-  + lambda_palette * |basis_color - origin|^2 + lambda_weight * MSE(basis_acc, gt weights).
-  The paired-pixel patch term needs the ``random_size`` sampler, which is not ported.
+  + lambda_palette * |basis_color - origin|^2 + lambda_weight * MSE(basis_acc, gt weights)
+  [+ lambda_patchsmooth * ``patch_smooth_term`` on the paired pixels of ``--random_size``
+  batches, once the smooth loss is on].
 - epoch schedules (:651-674): lambda_weight decays linearly to 0 by
   ``lweight_decay_epoch``; the basis colors are unfrozen and lambda_palette switched on
   after ``max_freeze_palette_epoch``; the smooth loss starts after
   ``smooth_loss_start_epoch``. A resumed run re-derives them from its epoch.
+- epochs as the stage-1 trainer's: device-sampled pixels, or with ``--random_size`` /
+  ``--error_map`` host-collated batches with the error map's update (:433-460).
 - ``extract_palette`` (:1135-1200): render all training views with the stage-1 NeRF,
   keep foreground pixels (weights_sum > 0.5), intensity-normalize the ground-truth colors
   ((rgb + 0.05) / |.|), run the RGBXY extraction -> palette.npz / hist_weights.npz.
@@ -45,11 +48,27 @@ from ..models.mlp import param_leaves
 from ..models.palette import (FROZEN, PaletteSpec, get_palette_weight_with_hist, init_palette,
                               initialize_palette, palette_density)
 from ..ops.occupancy import GridState
-from ..ops.scatter import check_refused
 from ..render.palette_renderer import (RegionEdit, StylizerParams, render_palette_eval,
                                        render_palette_train)
 from . import checkpoint as ckpt_lib
 from .trainer import Trainer
+
+
+def patch_smooth_term(out: dict, inds: torch.Tensor, width: int,
+                      sigma_color: float) -> torch.Tensor:
+    """Paired-pixel omega smoothness (palette/utils.py:494-516; JAX palette_trainer.py:
+    106-120). The ``random_size`` sampler gives the batch as (pixel, jittered pixel)
+    halves; the composited palette weights of a pair are pulled together, weighted by
+    their image-space distance and diffuse-colour similarity (no gradient through the
+    weight)."""
+    half = inds.shape[0] // 2
+    ij = torch.stack([torch.div(inds, width, rounding_mode="floor"), inds % width],
+                     -1).to(torch.float32)
+    diffuse, omega = out["diffuse_rgb"], out["basis_acc"]
+    xyz_w = ((ij[:half] - ij[half:]) ** 2).sum(-1, keepdim=True) / 100.0
+    rgb_w = ((diffuse[:half] - diffuse[half:]) ** 2).sum(-1, keepdim=True) / sigma_color
+    sw = torch.exp(-(xyz_w + rgb_w)).detach()
+    return (((omega[:half] - omega[half:]) ** 2).sum(-1, keepdim=True) * sw).mean()
 
 
 class PaletteTrainer(Trainer):
@@ -119,18 +138,21 @@ class PaletteTrainer(Trainer):
                                             hist_weights))
 
     def train_step(self, rays_o, rays_d, images, gt_feat=None, bg=None, noise=None,
-                   jit_u=None):
+                   jit_u=None, enc_u=None, enc_lvls=None, inds=None, width=None):
         """One optimizer step on a ray batch; returns (loss, per_ray), detached.
 
-        ``bg`` [N, 3] (background for RGBA gt), ``noise`` [N] (march jitter) and ``jit_u``
-        [N*S, 3] (smooth-loss jitter) are drawn from the trainer's generator, in this
-        order, when None. ``gt_feat`` [N, clip_dim] is needed with ``pred_clip``.
+        ``bg`` [N, 3] (background for RGBA gt), ``noise`` [N] (march jitter), ``jit_u``
+        [N*S, 3] (smooth-loss jitter) and, under ``-O2``, the encode draws ``enc_u`` /
+        ``enc_lvls`` are drawn from the trainer's generator, in this order, when None.
+        ``gt_feat`` [N, clip_dim] is needed with ``pred_clip``; the batch's pixel indices
+        ``inds`` [N] and image ``width`` with the patch-smooth term.
         """
         opt, spec, dev = self.opt, self.palette_spec, self.device
         n = rays_o.shape[0]
         smooth = self.require_smooth_loss
-        if smooth and opt.random_size > 0 and opt.lambda_patchsmooth > 0:
-            raise NotImplementedError("the patch-smooth term (random_size) is not ported yet")
+        patch = smooth and opt.random_size > 0 and opt.lambda_patchsmooth > 0
+        if patch and (inds is None or width is None):
+            raise ValueError("the patch-smooth term needs the batch's pixel indices and width")
         if images.shape[-1] == 4 and spec.bg_radius <= 0:
             if bg is None:
                 bg = torch.rand((n, 3), generator=self.generator, device=dev)
@@ -143,12 +165,14 @@ class PaletteTrainer(Trainer):
         if smooth and jit_u is None:
             jit_u = torch.rand((n * self.train_settings.num_samples, 3),
                                generator=self.generator, device=dev)
+        rand = self._encode_rand(n, enc_u, enc_lvls)
 
         p = self.params
         out = render_palette_train(p, spec, self.grid_state.bitfield, rays_o, rays_d,
                                    self.train_settings, bg_color=bg,
                                    freeze_basis_color=self.freeze_basis_color,
-                                   require_smooth_loss=smooth, noise=noise, jit_u=jit_u)
+                                   require_smooth_loss=smooth, noise=noise, jit_u=jit_u,
+                                   rand=rand)
         per_ray = ((out["image"] - gt) ** 2).mean(-1)
         loss = per_ray.mean()
         loss = loss + ((out["direct_rgb"] - gt) ** 2).mean()
@@ -159,6 +183,9 @@ class PaletteTrainer(Trainer):
         loss = loss + opt.lambda_view_dep * out["view_dep_norm"].mean()
         if smooth and opt.lambda_smooth > 0:
             loss = loss + opt.lambda_smooth * out["smooth_norm"].mean()
+        if patch:
+            loss = loss + opt.lambda_patchsmooth * patch_smooth_term(out, inds, width,
+                                                                     opt.sigma_color)
         if self.lambda_palette:
             loss = loss + self.lambda_palette * (
                 (p["basis_color"] - p["basis_color_origin"]) ** 2).sum(-1).mean()
@@ -169,19 +196,22 @@ class PaletteTrainer(Trainer):
         self._update(loss, zero_grad_for=(p["basis_color"],))
         return loss.detach(), per_ray.detach()
 
-    def _gui_train_step(self, data: dict, **draws) -> torch.Tensor:
-        """The palette-loss step from a collated batch (``train_gui``); ``draws`` (``bg``,
-        ``noise``, ``jit_u``) replace the generator's draws. Without LSeg features in the
-        batch, ``pred_clip`` is held to zeros, as in the JAX trainer."""
+    def _batch_step(self, data: dict, **draws):
+        """The palette-loss step from a collated batch (the host-sampled epoch and
+        ``train_gui``); ``draws`` (``bg``, ``noise``, ``jit_u``, ``enc_u``, ``enc_lvls``)
+        replace the generator's draws. Without LSeg features in the batch, ``pred_clip``
+        is held to zeros, as in the JAX trainer."""
         images = self._batch(data, "images")
         gt_feat = None
         if self.palette_spec.pred_clip:
             gt_feat = (self._batch(data, "feat_images") if "feat_images" in data else
                        torch.zeros((images.shape[0], self.palette_spec.clip_dim),
                                    device=self.device))
-        loss, _ = self.train_step(self._batch(data, "rays_o"), self._batch(data, "rays_d"),
-                                  images, gt_feat=gt_feat, **draws)
-        return loss
+        inds = None if "inds" not in data else torch.as_tensor(
+            np.asarray(data["inds"]), dtype=torch.int64, device=self.device)
+        return self.train_step(self._batch(data, "rays_o"), self._batch(data, "rays_d"),
+                               images, gt_feat=gt_feat, inds=inds, width=data.get("W"),
+                               **draws)
 
     def _apply_schedule(self):
         """The schedule flags the epoch count implies (palette/utils.py:651-674)."""
@@ -211,18 +241,22 @@ class PaletteTrainer(Trainer):
             self._apply_schedule()
         return self.stats
 
-    def train_one_epoch(self, train_ds):
-        """One step per training image, in a random order, on device-resident images
-        (and LSeg features with ``pred_clip``)."""
-        t0 = time.time()
+    def _epoch_note(self) -> str:
+        return (f", lw={self.lambda_weight:.4f}, lp={self.lambda_palette:.4f}, "
+                f"freeze={self.freeze_basis_color}, smooth={self.require_smooth_loss}")
+
+    def _upload(self, train_ds):
+        """The stage-1 upload, plus the LSeg features with ``pred_clip``."""
         if self._dev_src is not train_ds:
-            imgs = torch.as_tensor(train_ds.images)
-            self._dev_images = imgs.reshape(imgs.shape[0], -1, imgs.shape[-1]).to(self.device)
-            self._dev_poses = torch.as_tensor(train_ds.poses).to(self.device)
             feats = getattr(train_ds, "feat_images", None)
             self._dev_feats = None if feats is None else torch.as_tensor(feats).reshape(
                 feats.shape[0], -1, feats.shape[-1]).to(self.device)
-            self._dev_src = train_ds
+        super()._upload(train_ds)
+
+    def _device_epoch(self, train_ds) -> list:
+        """Pixels sampled and rays generated on the device (no grid refresh: the grid is
+        stage 1's); returns the step losses."""
+        self._upload(train_ds)
         if self.palette_spec.pred_clip and self._dev_feats is None:
             raise ValueError("pred_clip training needs the dataset's lseg_feature arrays")
         B = self._dev_poses.shape[0]
@@ -239,15 +273,7 @@ class PaletteTrainer(Trainer):
             loss, _ = self.train_step(rays_o, rays_d, pix, gt_feat=gt_feat)
             losses.append(loss)
             self.global_step += 1
-        avg = float(torch.stack(losses).mean())
-        check_refused()  # the host has just waited for the device: rows the kernel refused
-        self.stats["loss"].append(avg)
-        self.stats.setdefault("epoch_seconds", []).append(time.time() - t0)
-        self.log(f"[epoch {self.epoch}] loss={avg:.6f} "
-                 f"({B} steps, {time.time() - t0:.1f}s, step={self.global_step}, "
-                 f"lw={self.lambda_weight:.4f}, lp={self.lambda_palette:.4f}, "
-                 f"freeze={self.freeze_basis_color}, smooth={self.require_smooth_loss})")
-        return avg
+        return losses
 
     # ------------------------------------------------------------------ eval / test
 

@@ -12,14 +12,22 @@ Port of the ``-O`` path of ``palettenerf_tpu/train/trainer.py``:
   ``grid_update_warmup``, then a rotating 1/4 slab (:378-384); never-seen cells are
   marked at the start of training (:442-446).
 - Training runs on device-resident images with pixels sampled and rays generated on
-  the device (the counterpart of ``scan_steps`` :281-320, as a Python loop).
+  the device (the counterpart of ``scan_steps`` :281-320, as a Python loop), except
+  where the JAX trainer takes its host-sampled epoch (``supports_fast_path`` false,
+  :322-330): with ``--error_map`` or ``--random_size`` the batches come from
+  ``train_ds.iter_epoch()`` on the host, and the error map is updated after each step
+  (:462-490).
+- ``-O2`` (``--fast_grad --stochastic_trilerp --grad_levels 8``) and ``--gridtype
+  hash_xadd`` act in the encoder (``ops/hashgrid_fast.py``); each step draws its encode
+  randomness (``models.nerf.encode_rand_for``) after the background and the jitter.
 - The interactive hooks (:611-747): ``train_gui`` bursts on collated host batches,
   ``test_gui`` frames at a downscale, ``set_render_option`` for the GUI sliders,
   ``save_view``, and ``save_mesh`` (density lattice on the device, marching tetrahedra
   on the host).
 
 All randomness comes from one ``torch.Generator`` on the trainer's device, seeded
-with ``opt.seed``. Options of the JAX trainer that are not ported yet raise.
+with ``opt.seed`` (the host samplers of ``iter_epoch`` use the dataset's own NumPy
+generator). Options of the JAX trainer that are not ported yet raise.
 """
 
 from __future__ import annotations
@@ -38,7 +46,8 @@ from ..config import Config
 from ..data.png import write_png
 from ..data.rays import gen_rays, gen_rays_torch
 from ..models.mlp import param_leaves
-from ..models.nerf import NeRFSpec, init_nerf, nerf_density
+from ..models.nerf import NeRFSpec, encode_rand_for, init_nerf, nerf_density
+from ..ops.hashgrid_fast import EncodeRand
 from ..ops.occupancy import (GridState, init_grid_state, mark_untrained_grid,
                              update_density_grid)
 from ..ops.scatter import check_refused
@@ -52,14 +61,10 @@ _DENSITY_CHUNK = 1 << 18  # grid points per density query during a refresh
 def check_ported(opt: Config) -> None:
     """Raise for options whose code paths are not ported yet."""
     unported = {
-        "O2": opt.O2, "fast_grad": opt.fast_grad,
-        "stochastic_trilerp": opt.stochastic_trilerp, "grad_levels": opt.grad_levels,
-        "gridtype=hash_xadd": opt.gridtype == "hash_xadd",
         "march_groups": opt.march_groups > 0, "eval_fine_grid": opt.eval_fine_grid,
         "eval_compact_frac": opt.eval_compact_frac,
         "train_compact_frac": opt.train_compact_frac,
-        "bg_radius > 0": opt.bg_radius > 0, "error_map": opt.error_map,
-        "patch_size > 1": opt.patch_size > 1, "random_size": opt.random_size,
+        "bg_radius > 0": opt.bg_radius > 0, "patch_size > 1": opt.patch_size > 1,
         "color_space=linear": opt.color_space == "linear",
         "n_devices > 1": opt.n_devices > 1, "rand_pose": opt.rand_pose >= 0,
     }
@@ -195,11 +200,22 @@ class Trainer:
 
     # ------------------------------------------------------------------ training
 
-    def train_step(self, rays_o, rays_d, images, bg=None, noise=None):
+    def _encode_rand(self, n_rays: int, enc_u=None, enc_lvls=None) -> Optional[EncodeRand]:
+        """The step's encode draws: ``enc_u`` [n_rays * S, L] / ``enc_lvls`` [K] as given,
+        or (both None) drawn from the generator, ``u`` then ``lvls``; None when the spec's
+        profile uses none."""
+        if enc_u is not None or enc_lvls is not None:
+            return EncodeRand(u=enc_u, lvls=enc_lvls)
+        return encode_rand_for(self.generator, self.spec,
+                               n_rays * self.train_settings.num_samples)
+
+    def train_step(self, rays_o, rays_d, images, bg=None, noise=None, enc_u=None,
+                   enc_lvls=None):
         """One optimizer step on a ray batch; returns (loss, per_ray), detached.
 
-        ``bg`` [N, 3] (background for RGBA gt) and ``noise`` [N] (march jitter) are
-        drawn from the trainer's generator when None.
+        ``bg`` [N, 3] (background for RGBA gt), ``noise`` [N] (march jitter) and, under
+        ``-O2``, the encode draws ``enc_u`` / ``enc_lvls`` are drawn from the trainer's
+        generator, in this order, when None.
         """
         opt, n, dev = self.opt, rays_o.shape[0], self.device
         c = images.shape[-1]
@@ -212,10 +228,11 @@ class Trainer:
             gt = images[..., :3]
         if noise is None:
             noise = torch.rand((n,), generator=self.generator, device=dev)
+        rand = self._encode_rand(n, enc_u, enc_lvls)
 
         out = render_nerf_train(self.params, self.spec, self.grid_state.bitfield,
                                 rays_o, rays_d, self.train_settings,
-                                bg_color=bg, rays_gt=gt, noise=noise)
+                                bg_color=bg, rays_gt=gt, noise=noise, rand=rand)
         per_ray = ((out["image"] - gt) ** 2).mean(-1) + out["rgb_norm"] * opt.lambda_sparse
         loss = per_ray.mean()
 
@@ -275,14 +292,42 @@ class Trainer:
                 self.save_checkpoint(best=True)
         return self.stats
 
+    def host_sampled(self) -> bool:
+        """Whether epochs take host-collated batches: the JAX trainers' epoch without
+        ``supports_fast_path`` (error map, paired pixels, patches)."""
+        opt = self.opt
+        return bool(opt.error_map or opt.random_size > 0 or opt.patch_size > 1)
+
     def train_one_epoch(self, train_ds):
-        """One step per training image, in a random order, on device-resident images."""
+        """One step per training image, in a random order: device-sampled pixels on
+        device-resident images, or the host-sampled epoch (``host_sampled``)."""
         t0 = time.time()
+        if self.host_sampled():
+            losses = self._host_epoch(train_ds)
+        else:
+            losses = self._device_epoch(train_ds)
+        avg = float(torch.stack(losses).mean())
+        check_refused()  # the host has just waited for the device: rows the kernel refused
+        self.stats["loss"].append(avg)
+        self.stats.setdefault("epoch_seconds", []).append(time.time() - t0)
+        self.log(f"[epoch {self.epoch}] loss={avg:.6f} ({len(losses)} steps, "
+                 f"{time.time() - t0:.1f}s, step={self.global_step}{self._epoch_note()})")
+        return avg
+
+    def _epoch_note(self) -> str:
+        return ""
+
+    def _upload(self, train_ds):
+        """Move the training images and poses to the device once per dataset."""
         if self._dev_src is not train_ds:
             imgs = torch.as_tensor(train_ds.images)
             self._dev_images = imgs.reshape(imgs.shape[0], -1, imgs.shape[-1]).to(self.device)
             self._dev_poses = torch.as_tensor(train_ds.poses).to(self.device)
             self._dev_src = train_ds
+
+    def _device_epoch(self, train_ds) -> list:
+        """Pixels sampled and rays generated on the device; returns the step losses."""
+        self._upload(train_ds)
         B = self._dev_poses.shape[0]
         H, W = train_ds.H, train_ds.W
         intr = [float(v) for v in train_ds.intrinsics]
@@ -298,12 +343,23 @@ class Trainer:
             loss, _ = self.train_step(rays_o, rays_d, pix)
             losses.append(loss)
             self.global_step += 1
-        avg = float(torch.stack(losses).mean())
-        check_refused()  # the host has just waited for the device: rows the kernel refused
-        self.stats["loss"].append(avg)
-        self.log(f"[epoch {self.epoch}] loss={avg:.6f} "
-                 f"({B} steps, {time.time() - t0:.1f}s, step={self.global_step})")
-        return avg
+        return losses
+
+    def _host_epoch(self, train_ds) -> list:
+        """Batches collated on the host by ``train_ds.iter_epoch()`` (its error-map and
+        paired-pixel samplers), one upload each; the error map takes each step's per-ray
+        loss (trainer.py:462-490). Returns the step losses."""
+        losses = []
+        for data in train_ds.iter_epoch():
+            if not self.grid_frozen and self.global_step % self.opt.update_extra_interval == 0:
+                self.refresh_grid()
+            loss, per_ray = self._batch_step(data)
+            losses.append(loss)
+            self.global_step += 1
+            if "inds_coarse" in data:
+                train_ds.update_error_map(data["index"], data["inds_coarse"],
+                                          per_ray.cpu().numpy())
+        return losses
 
     # ------------------------------------------------------------------ eval
 
@@ -386,7 +442,7 @@ class Trainer:
                 data = next(it)
             if not self.grid_frozen and self.global_step % self.opt.update_extra_interval == 0:
                 self.refresh_grid()
-            losses.append(self._gui_train_step(data))
+            losses.append(self._batch_step(data)[0])
             self.global_step += 1
         loss = float(torch.stack(losses).mean())
         check_refused()  # the host has just waited for the device
@@ -396,12 +452,15 @@ class Trainer:
     def _batch(self, data: dict, key: str) -> torch.Tensor:
         return torch.as_tensor(np.asarray(data[key], np.float32), device=self.device)
 
+    def _batch_step(self, data: dict, **draws):
+        """One optimizer step from a collated batch; returns (loss, per_ray), detached.
+        ``draws`` (``bg``, ``noise``, ``enc_u``, ``enc_lvls``) replace the generator's."""
+        return self.train_step(self._batch(data, "rays_o"), self._batch(data, "rays_d"),
+                               self._batch(data, "images"), **draws)
+
     def _gui_train_step(self, data: dict, **draws) -> torch.Tensor:
-        """One optimizer step from a collated batch; returns the loss, detached.
-        ``draws`` (``bg``, ``noise``) replace the generator's draws."""
-        loss, _ = self.train_step(self._batch(data, "rays_o"), self._batch(data, "rays_d"),
-                                  self._batch(data, "images"), **draws)
-        return loss
+        """The GUI's training step (``_batch_step``); returns the loss, detached."""
+        return self._batch_step(data, **draws)[0]
 
     def test_gui(self, pose, intrinsics, W: int, H: int, downscale: float = 1.0,
                  bg_color=None) -> dict:

@@ -162,6 +162,72 @@ def test_bf16_table_grad_on_card_matches_cpu(cuda_device):
     assert float((g_g - g_c).abs().max()) <= 1e-2 * float(g_c.abs().max())
 
 
+# the -O2 backward streams: (nearest_corner_grad, stochastic, grad_levels)
+O2_MODES = {"O2": (True, True, 8), "fast_grad": (True, False, 0),
+            "stochastic": (False, True, 0), "exact_levels": (False, False, 8)}
+
+
+@pytest.mark.parametrize("gridtype", ["hash", "hash_xadd"])
+@pytest.mark.parametrize("mode", list(O2_MODES))
+@pytest.mark.parametrize("walk", ["columns", "rows"])
+def test_scatter_kernel_on_O2_streams(cuda_device, gridtype, mode, walk):
+    """B1 on the backward streams of -O2, --fast_grad, the drawn row and grad_levels, in
+    both of its modes (the column walk over the stream's columns per point, and the
+    stream in its own order), against its plain version."""
+    nearest, stochastic, levels = O2_MODES[mode]
+    spec = HashGridSpec.build(num_levels=16, desired_resolution=2048, log2_hashmap_size=15,
+                              gridtype=gridtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.rand((1 << 14, 3), generator=gen, device=cuda_device)
+    rand = hashgrid_fast.make_encode_rand(gen, x.shape[0], spec, levels)
+    _, res = hashgrid_fast._encode(torch.zeros((spec.total_params, 2), device=cuda_device),
+                                   spec, x, rand.u, stochastic)
+    g = torch.randn((x.shape[0], spec.output_dim), generator=gen, device=cuda_device)
+    rows, upd, period = hashgrid_fast._backward_stream(spec, res, rand.lvls, g, nearest,
+                                                       stochastic, levels)
+    vals = upd.to(torch.bfloat16).contiguous()
+    got = scatter.scatter_add(rows, vals, spec.total_params,
+                              period if walk == "columns" else None)
+    torch.cuda.synchronize()
+    scatter.check_refused()
+    ref = scatter.scatter_add_reference(rows, vals, spec.total_params)
+    scale = scatter.scatter_add_reference(rows, vals.abs(), spec.total_params)
+    assert _within(got, ref, scale, 1e-5)
+
+
+@pytest.mark.parametrize("gridtype", ["hash", "hash_xadd"])
+@pytest.mark.parametrize("mode", list(O2_MODES))
+def test_O2_encode_on_card_matches_cpu(cuda_device, gridtype, mode):
+    """The -O2 encoder on the card against the CPU on the same points and draws: the
+    drawn rows (a one-ulp weight can flip a draw at u = sum of weights: at most 1e-5 of
+    them), the forward where the draws agree, the bf16 table gradient."""
+    nearest, stochastic, levels = O2_MODES[mode]
+    spec = HashGridSpec.build(num_levels=8, desired_resolution=512, log2_hashmap_size=14,
+                              gridtype=gridtype)
+    rng = np.random.default_rng(1)
+    table = torch.from_numpy(rng.uniform(-1, 1, (spec.total_params, 2)).astype(np.float32))
+    x = torch.from_numpy(rng.uniform(0, 1, (4096, 3)).astype(np.float32))
+    u = torch.from_numpy(rng.uniform(size=(4096, 8)).astype(np.float32))
+    lvls = torch.tensor([5, 0, 2, 7])
+    co = torch.from_numpy(rng.normal(size=(4096, spec.output_dim)).astype(np.float32))
+    res = []
+    for dev in ("cpu", cuda_device):
+        t = table.to(dev, copy=True).requires_grad_(True)
+        rand = hashgrid_fast.EncodeRand(u=u.to(dev), lvls=lvls.to(dev))
+        out = hashgrid_fast.hashgrid_encode_fast(t, x.to(dev), spec, torch.bfloat16, nearest,
+                                                 stochastic, rand, levels and 4)
+        (out * co.to(dev)).sum().backward()
+        picks = hashgrid_fast._encode(t.detach(), spec, x.to(dev), u.to(dev), stochastic)[1][0]
+        res.append((out.detach().cpu(), t.grad.cpu(), picks.cpu()))
+    (out_c, g_c, p_c), (out_g, g_g, p_g) = res
+    flipped = p_g != p_c
+    assert float(flipped.float().mean()) <= 1e-5
+    same = ~flipped.reshape(4096, 8, -1).any(-1)[..., None].expand(-1, -1, 2).reshape(4096, -1)
+    torch.testing.assert_close(out_g[same], out_c[same], rtol=0, atol=1e-6)
+    if not flipped.any():
+        assert float((g_g - g_c).abs().max()) <= 1e-2 * float(g_c.abs().max())
+
+
 def test_train_step_on_card_matches_cpu(cuda_device, tmp_path):
     cfg = Config(O=True, fp16=True, bound=1.0, grid_size=32, num_rays=512, max_steps=256,
                  train_samples_per_ray=32, log2_hashmap_size=14, grid_levels=8, iters=100)

@@ -95,5 +95,6 @@ def test_bounded_matches():
 
 
 def test_unported_gridtype_raises():
-    with pytest.raises(ValueError):
-        thg.HashGridSpec.build(gridtype="hash_xadd")
+    # every gridtype of the JAX package is ported (hash_xadd: test_torch_hashgrid_o2.py)
+    with pytest.raises(ValueError, match="unknown gridtype"):
+        thg.HashGridSpec.build(gridtype="dense")

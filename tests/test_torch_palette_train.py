@@ -455,8 +455,8 @@ def test_initialize_palette_restarts_optimizer_and_schedule_count(tmp_path):
     assert torch.equal(ttr.params["basis_color"].detach(), T(BC[::-1]))
     assert torch.equal(ttr.ema_params["basis_color"], T(BC[::-1]))
     assert ttr.params["basis_color"].requires_grad and not ttr.params["hist_weights"].requires_grad
-    with pytest.raises(NotImplementedError, match="random_size"):
-        TPaletteTrainer("palette", TConfig(**dict(CFG_KW, random_size=4)), tspec,
+    with pytest.raises(NotImplementedError, match="patch_size"):
+        TPaletteTrainer("palette", TConfig(**dict(CFG_KW, patch_size=2)), tspec,
                         workspace=str(tmp_path), use_checkpoint="scratch", mute=True, device="cpu")
 
 
