@@ -32,6 +32,18 @@ Phases (each raises on failure; the script then exits non-zero):
    validation view, then B1 on the ``-O2`` and ``--fast_grad`` backward streams of one
    batch on that field, held and timed in both of its modes; one ``--error_map`` epoch
    (host-sampled, resumed from it) and two epochs of ``--gridtype hash_xadd -O2``.
+   Compaction reference: on a small field, the supercell mip and the fine bake card vs
+   CPU bit for bit, the hierarchical and fine-grid marches' masks and ``ts``, and a
+   compacted train render's outputs and gradients.
+   Compacted train path: one 100-step ``-O`` epoch resumed from the train main path with
+   ``--train_compact_frac 0.25`` and the same epoch without it (copies of the
+   workspace): steps/s, the overflow summed over the epoch, B1's launches; then B1 held
+   and timed on the compacted stream of one train batch.
+   Exact eval settings: ``val/r_0`` at 800x800 flat, with ``--eval_compact_frac 1.0``
+   (compaction alone: equal to the flat frame), ``--eval_fine_grid 256``, + ``--eval_compact_frac
+   0.125``, + ``--march_groups 32``, and one pass of 256 slots (``--eval_compaction 0``)
+   plain and with all three: s/frame, bake s and occupied cells, overflow, PSNR against
+   the image and the flat frame.
 6. palette reference: one small ``-O`` palette train step (smooth loss on, basis colors
    unfrozen, hist weights present) on the card against the same step on the CPU: loss
    and every gradient; ``encoder`` and ``sigma_net`` get none on either.
@@ -63,6 +75,12 @@ the training views (``--extract_palette --extract_via_sweep``), then 300 palette
     (``render_dynamic``, 100 ms budget) and a 16-step ``train_burst`` on the training
     split; then ``save_mesh(256, 10)`` of the stage-1 trainer of phase 5 (``main_nerf``'s
     tail), with the PLY's checks.
+
+11b. palette eval settings: the palette eval frame of ``val/r_0`` under the first five
+    settings of the stage-1 eval and those of ``scripts/serve_vs_gt.py`` (budget 3/8, 48
+    group slots, fine grid) (trainers loaded as ``main_palette --test`` loads them), then one
+    ``EditingSession`` frame at the ``--gui`` defaults with ``--eval_fine_grid 256
+    --eval_compact_frac 0.125`` at test view 0 (``jump_to_pose`` to test pose 0).
 
 12. -O2 palette main path: ``main_palette.main`` with ``-O2 --random_size 8
     --lambda_patchsmooth 0.004`` on the extraction of phase 7 (host-sampled epochs, one
@@ -148,6 +166,43 @@ PICK_FLIP_SHARE = 1e-5     # card vs CPU corner draws that may differ (u within 
 SCATTER_RTOL = 1e-5        # of the row's summed |update|: f32 atomics reorder the sums
 SCATTER_PERIOD = 128       # corner columns per point: 16 levels x 8 corners
 TABLE_ROWS = 6_119_864     # full width: 16 levels, 2^19 rows per hashed level
+# sample compaction, the fine eval grid and the hierarchical march (opt-in flags)
+COMPACT_FRAC = 0.25        # --train_compact_frac of the compacted train epoch
+EVAL_SETTINGS = {          # exact-eval settings, each against the flat frame
+    "flat": [],
+    "compact": ["--eval_compact_frac", "1.0"],    # compaction alone: a budget of every slot
+    "fine": ["--eval_fine_grid", "256"],
+    "fine+compact": ["--eval_fine_grid", "256", "--eval_compact_frac", "0.125"],
+    "fine+compact+groups": ["--eval_fine_grid", "256", "--eval_compact_frac", "0.125",
+                            "--march_groups", "32"],
+}
+# the stage-1 eval only: one pass of 256 slots instead of the compaction rounds (the
+# JAX package's metric setting), plain and with all three options
+STAGE1_SETTINGS = dict(EVAL_SETTINGS, **{
+    "single pass": ["--eval_compaction", "0"],
+    "single pass+fine+compact+groups": ["--eval_compaction", "0", "--eval_fine_grid", "256",
+                                        "--eval_compact_frac", "0.125", "--march_groups", "32"],
+})
+# the palette eval only: the settings of scripts/serve_vs_gt.py:50 (a budget of 3/8, 48
+# group slots) on the fine grid
+PALETTE_SETTINGS = dict(EVAL_SETTINGS, **{
+    "fine+compact 3/8+groups 48": ["--eval_fine_grid", "256", "--eval_compact_frac", "0.375",
+                                   "--march_groups", "48"],
+})
+COMPACT_EXACT_ATOL = 1e-4  # compacted frame vs uncompacted with zero overflow: f32 sums
+# PSNR against the flat frame, set from the first card runs (NVIDIA H100 80GB HBM3, 700 W) with
+# margin. Stage 1 (dt_gamma 1/128): fine inf (the fine test never applies: dt > 2/256
+# past t = 1), + compact and + groups 11.74-11.81 dB (the rounds' budgets drop 3.65 M
+# samples), one pass with all three 150.1 dB. Palette (dt_gamma 0): fine 51.08 dB,
+# + compact 11.91 dB, + groups 12.55 dB (11-14 M samples dropped: 21% of the slots hold one)
+STAGE1_PSNR_FLOORS = {"fine": 60.0, "fine+compact": 10.5, "fine+compact+groups": 10.5,
+                      "single pass+fine+compact+groups": 60.0}
+PALETTE_PSNR_FLOORS = {"fine": 45.0, "fine+compact": 10.5, "fine+compact+groups": 11.0}
+EDIT_COMPACT_PSNR_FLOOR = 21.0  # edit frame, fine grid + budget 1/8 vs plain: first run
+#                                 23.13 dB (633 k samples dropped)
+COMPACT_TS_RTOL = 1e-6     # card vs CPU march t with exp in the step rule (a few ulp)
+COMPACT_CARD_ATOL = 2e-5   # card vs CPU compacted train render: f32 sums in another order
+COMPACT_GRAD_RTOL = 1e-4   # of each gradient tensor's largest entry (f32 atomics, sums)
 
 
 def log(msg: str) -> None:
@@ -567,6 +622,325 @@ def phase_path_stream(torch, trainer, train_ds):
     stream_stats(torch, spec, idx, vals, "path")
     t = time_scatter(torch, scatter, idx, vals, spec.total_params, "path")
     return {f"path_{k}": v for k, v in t.items()}
+
+
+def phase_compaction_reference(torch, dev):
+    """The sample-compaction slice on a small field, card against CPU: the supercell mip
+    (cascade 1 and 2) and the fine bake of an analytic field bit for bit; the
+    hierarchical and fine-grid marches' masks (and ``ts``: equal at dt_gamma 0, within
+    COMPACT_TS_RTOL with exp in the step rule); a compacted train render's outputs and
+    gradients within COMPACT_CARD_ATOL / COMPACT_GRAD_RTOL. Returns the largest output
+    difference."""
+    import numpy as np
+
+    from palettenerf_torch.models.nerf import NeRFSpec, init_nerf, param_list
+    from palettenerf_torch.ops import march, occupancy
+    from palettenerf_torch.ops.rays import near_far_from_aabb
+    from palettenerf_torch.render.nerf_renderer import RenderSettings, render_nerf_train
+
+    rng = np.random.default_rng(0)
+    G = 32
+    for cascade in (1, 2):
+        occ = torch.from_numpy(rng.uniform(size=(cascade * G ** 3,)) < 0.02)
+        bits = occupancy.packbits(occ)
+        cpu = march.build_super_bitfield(bits, G, cascade)
+        card = march.build_super_bitfield(bits.to(dev), G, cascade)
+        if not torch.equal(card.cpu(), cpu):
+            raise AssertionError(f"build_super_bitfield (cascade {cascade}): card != CPU")
+
+    def density(p):
+        return torch.where((p ** 2).sum(-1) < 0.25, 30.0, 0.0)
+
+    c = (torch.arange(G) + 0.5) / G * 2 - 1
+    box = (torch.stack(torch.meshgrid(c, c, c, indexing="ij"), -1).abs() < 0.75).all(-1)
+    state = occupancy.GridState(torch.where(box, 30.0, 0.0).reshape(1, -1),
+                                occupancy.packbits(box.reshape(-1)), torch.tensor(20.0),
+                                torch.tensor(0))
+    fine = occupancy.bake_fine_bitfield(state, density, 1.0, 10.0, fine_size=64, grid_size=G)
+    fine_card = occupancy.bake_fine_bitfield(
+        occupancy.GridState(*[t.to(dev) for t in state]), density, 1.0, 10.0, fine_size=64,
+        grid_size=G)
+    if not torch.equal(fine_card.cpu(), fine):
+        raise AssertionError("bake_fine_bitfield: card != CPU")
+
+    n = 2048
+    o = torch.tensor([0.0, 0.0, -1.6]).expand(n, 3).contiguous()
+    d = torch.from_numpy(rng.normal(size=(n, 3)) * 0.3 + [0.0, 0.0, 1.0]).float()
+    d = d / d.norm(dim=-1, keepdim=True)
+    nears, fars = near_far_from_aabb(o, d, torch.tensor([-1.0] * 3 + [1.0] * 3), 0.05)
+    noise = torch.from_numpy(rng.uniform(size=(n,))).float()
+    sup = march.build_super_bitfield(state.bitfield, G, 1)
+    for what, kw in (("hierarchical", dict(sup_bitfield=sup, max_groups=12)),
+                     ("fine grid", dict(fine_grid_size=64)),
+                     ("hierarchical + fine grid", dict(sup_bitfield=sup, max_groups=12,
+                                                       fine_grid_size=64))):
+        for dt_gamma in (0.0, 1.0 / 128):
+            bf = (state.bitfield, fine) if "fine_grid_size" in kw else state.bitfield
+            args = (o, d, nears, fars, bf)
+            cpu = march.march_rays(*args, 1.0, 1, G, dt_gamma, 512, 48, noise, **kw)
+            to = [t.to(dev) if torch.is_tensor(t) else tuple(x.to(dev) for x in t)
+                  for t in args]
+            kd = {k: (v.to(dev) if torch.is_tensor(v) else v) for k, v in kw.items()}
+            card = march.march_rays(*to, 1.0, 1, G, dt_gamma, 512, 48, noise.to(dev), **kd)
+            if not torch.equal(card.mask.cpu(), cpu.mask):
+                raise AssertionError(f"{what} march mask (dt_gamma {dt_gamma}): card != CPU")
+            ts_err = float(((card.ts.cpu() - cpu.ts).abs() / cpu.ts.abs().clamp_min(1e-30)).max())
+            if ts_err > (0.0 if dt_gamma == 0 else COMPACT_TS_RTOL):
+                raise AssertionError(f"{what} march ts (dt_gamma {dt_gamma}): card differs "
+                                     f"from CPU by {ts_err:.3g} relative")
+            if not 0 < int(cpu.mask.sum()) < cpu.mask.numel():
+                raise AssertionError(f"{what} march: {int(cpu.mask.sum())} samples")
+
+    spec = NeRFSpec.build(bound=1.0, log2_hashmap_size=14, grid_levels=8, hidden_dim=32,
+                          hidden_dim_color=32)
+    params = init_nerf(spec, torch.Generator().manual_seed(0))
+    params["encoder"] = torch.from_numpy(rng.uniform(-1, 1, params["encoder"].shape)).float()
+    st = RenderSettings(bound=1.0, grid_size=G, dt_gamma=0.0, max_steps=256, num_samples=32,
+                        min_near=0.05, compact_frac=0.25)
+    results = {}
+    for where in ("cpu", dev):
+        def leaf(t):
+            return t.detach().to(where, copy=True).requires_grad_(True)
+
+        p = {k: ([leaf(layer) for layer in v] if isinstance(v, list) else leaf(v))
+             for k, v in params.items()}
+        out = render_nerf_train(p, spec, state.bitfield.to(where), o.to(where), d.to(where),
+                                st, noise=noise.to(where))
+        out["image"].square().sum().backward()
+        results[where] = ({k: v.detach().cpu() for k, v in out.items()},
+                          [t.grad.cpu() for t in param_list(p)])
+    (o_cpu, g_cpu), (o_card, g_card) = results["cpu"], results[dev]
+    if int(o_cpu["compact_overflow"][0]) != int(o_card["compact_overflow"][0]):
+        raise AssertionError("compact_overflow: card != CPU")
+    out_err = max(float((o_card[k] - o_cpu[k]).abs().max()) for k in o_cpu
+                  if k != "compact_overflow")
+    grad_err = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(g_card, g_cpu))
+    log(f"compaction reference: supercell mips, fine bake, hierarchical / fine-grid march "
+        f"masks card = CPU; compacted train render (budget {st.compact_frac} of "
+        f"{n * 32} slots, overflow {int(o_cpu['compact_overflow'][0])}): outputs within "
+        f"{out_err:.2e}, gradients within {grad_err:.2e} of each tensor's largest entry")
+    if out_err > COMPACT_CARD_ATOL or grad_err > COMPACT_GRAD_RTOL:
+        raise AssertionError(f"compacted train render card vs CPU: outputs {out_err}, "
+                             f"gradients {grad_err}")
+    return out_err
+
+
+def _copy_workspace(src, dst):
+    """A workspace whose checkpoints are those of ``src`` (so a resumed run leaves
+    ``src`` as it was)."""
+    import shutil
+
+    shutil.rmtree(os.path.join(ROOT, dst), ignore_errors=True)
+    shutil.copytree(os.path.join(ROOT, src, "checkpoints"), os.path.join(ROOT, dst, "checkpoints"))
+    return os.path.join(ROOT, dst)
+
+
+def _stage1_trainer(torch, dev, flags, workspace):
+    from palettenerf_torch.config import Config
+    from palettenerf_torch.main_nerf import build_parser
+    from palettenerf_torch.models.nerf import NeRFSpec
+    from palettenerf_torch.train.trainer import Trainer
+
+    cfg = Config.from_args(build_parser().parse_args(MAIN_ARGS + list(flags)))
+    spec = NeRFSpec.build(bound=cfg.bound, bg_radius=cfg.bg_radius, fp16=cfg.fp16_enabled,
+                          log2_hashmap_size=cfg.log2_hashmap_size,
+                          grid_levels=cfg.grid_levels, grid_level_dim=cfg.grid_level_dim)
+    return Trainer("ngp", cfg, spec, workspace=workspace, use_checkpoint="latest",
+                   eval_interval=10_000, mute=True, device=dev)
+
+
+def phase_compact_train(torch, dev, train_ds):
+    """Sample compaction on the train path: one 100-step ``-O`` epoch resumed from the
+    train main path's workspace with ``--train_compact_frac 0.25`` and the same epoch
+    without it (copies of the workspace). Then B1 on the compacted stream of one train
+    batch. Returns (the compacted epoch's launch counts, what was measured, the stream's
+    times)."""
+    from palettenerf_torch.ops import hashgrid_fast, scatter
+    from palettenerf_torch.render.nerf_renderer import forward_compact, train_rows
+
+    info = {}
+    for name, flags in (("plain", []), ("compact", ["--train_compact_frac", str(COMPACT_FRAC)])):
+        tr = _stage1_trainer(torch, dev, flags, _copy_workspace(
+            NERF_WS, os.path.join("results", "chip_smoke_compact", name)))
+        if tr.global_step != EPOCHS * len(train_ds):
+            raise AssertionError(f"resumed at step {tr.global_step}")
+        torch.cuda.synchronize()
+        zero_counts()
+        # -------------------------------------------------------------- main path
+        tr.train(train_ds, None, EPOCHS + 1)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        # -------------------------------------------------------------- checks
+        steps = len(train_ds)
+        info[name] = {"steps_per_s": steps / tr.stats["epoch_seconds"][-1],
+                      "loss": tr.stats["loss"][-1],
+                      "overflow": (tr.stats["compact_overflow"][-1]
+                                   if "compact_overflow" in tr.stats else None),
+                      "scatter_add_launches": launches["scatter_add"]}
+        if launches["scatter_add"] != steps or not math.isfinite(tr.stats["loss"][-1]):
+            raise AssertionError(f"{name} epoch: scatter_add launched "
+                                 f"{launches['scatter_add']} times in {steps} steps, loss "
+                                 f"{tr.stats['loss'][-1]}")
+        if name == "compact":
+            compact_launches, trainer = launches, tr
+        else:
+            del tr
+    c = info["compact"]
+    log(f"train compaction: epoch {EPOCHS + 1} ({len(train_ds)} steps, resumed at step "
+        f"{EPOCHS * len(train_ds)}) {c['steps_per_s']:.2f} steps/s with --train_compact_frac "
+        f"{COMPACT_FRAC} (overflow {c['overflow']} samples "
+        f"over the epoch, loss {c['loss']:.5f}), {info['plain']['steps_per_s']:.2f} without "
+        f"(loss {info['plain']['loss']:.5f}); scatter_add launches {c['scatter_add_launches']}")
+    if c["overflow"] is None or info["plain"]["overflow"] is not None:
+        raise AssertionError("the compacted epoch did not count its overflow")
+
+    # the compacted stream: one batch marched as the train step marches it, the valid
+    # samples packed into the budget, their corner rows; zero cotangents past the valid count
+    st, spec = trainer.train_settings, trainer.spec.grid
+    m, x01, gen = march_train_batch(torch, trainer, train_ds, 5)
+    n = trainer.opt.num_rays
+    budget = train_rows(st, n)
+    packed = []
+    forward_compact(lambda x: packed.append(x) or (x[:, 0],), m.mask.reshape(-1), budget, x01)
+    idx = hashgrid_fast.corner_indices(spec, packed[0])[0].reshape(-1).contiguous()
+    U, C = idx.numel(), spec.level_dim
+    held = min(int(m.mask.sum()), budget)
+    vals = torch.randn((U, C), generator=gen, device=dev) * 1e-3
+    vals[held * SCATTER_PERIOD:] = 0.0
+    vals = vals.to(torch.bfloat16)
+    log(f"compacted stream: {n} rays x {st.num_samples} slots, {int(m.mask.sum())} samples, "
+        f"budget {budget} ({held} held, the rest at the tail with zero updates)")
+    max_err, _ = check_scatter(torch, scatter, idx, vals, spec.total_params,
+                               "compacted stream", SCATTER_PERIOD)
+    stream_stats(torch, spec, idx, vals, "compacted")
+    t = time_scatter(torch, scatter, idx, vals, spec.total_params, "compacted")
+    n_bytes = U * (4 + 2 * C) + spec.total_params * C * 4
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, U * C / FP32_FLOPS * 1e3
+    t.update(U=U, budget=budget, held=held, max_abs_err=max_err, bound_ms=max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations")
+    log(f"scatter_add bound on the compacted stream {t['bound_ms']:.4f} ms "
+        f"({n_bytes / 1e6:.1f} MB)")
+    del trainer
+    torch.cuda.empty_cache()
+    return compact_launches, info, t
+
+
+def _frame_psnr(torch, a, b) -> float:
+    import numpy as np
+
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return float("inf") if mse == 0 else -10.0 * math.log10(mse)
+
+
+def _eval_settings_run(torch, make, data, gt, what, settings, floors):
+    """One exact frame after a warm-up frame (which bakes the fine grid) under each of
+    ``settings``: s/frame, bake s and occupied cells, overflow, PSNR against the image and
+    against the flat frame; the checks of compaction alone and the ``floors``."""
+    import numpy as np
+
+    frames, rows = {}, {}
+    for name, flags in settings.items():
+        tr = make(flags)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.eval_step_full(data)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = tr.eval_step_full(data)
+        frame_s = time.perf_counter() - t0
+        bake = getattr(tr, "fine_bake_stats", None)
+        frames[name] = out["image"]
+        rows[name] = {"s_per_frame": frame_s, "warm_up_s": warm_s,
+                      "bake_s": None if bake is None else bake["seconds"],
+                      "occupied": None if bake is None else bake["occupied"],
+                      "overflow": tr.last_compact_overflow,
+                      "psnr": _frame_psnr(torch, out["image"], gt)}
+        if not np.isfinite(out["image"]).all():
+            raise AssertionError(f"{what} {name}: non-finite frame")
+        del tr
+        torch.cuda.empty_cache()
+    for name, row in rows.items():
+        row["psnr_vs_flat"] = _frame_psnr(torch, frames[name], frames["flat"])
+        log(f"{what}, {name} ({' '.join(settings[name]) or 'no flags'}): "
+            + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                        for k, v in row.items()))
+    exact = {}
+    for name, base in (("compact", "flat"), ("fine+compact", "fine")):
+        if rows[name]["overflow"] == 0:
+            exact[name] = float(np.abs(frames[name] - frames[base]).max())
+    log(f"{what}: max |compacted frame - uncompacted| with zero overflow {exact}")
+    if "compact" not in exact or max(exact.values()) > COMPACT_EXACT_ATOL:
+        raise AssertionError(f"{what}: compaction alone is not the uncompacted frame "
+                             f"({exact}, overflow {rows['compact']['overflow']})")
+    for name, floor in floors.items():
+        if not rows[name]["psnr_vs_flat"] > floor:
+            raise AssertionError(f"{what} {name}: {rows[name]['psnr_vs_flat']:.3f} dB "
+                                 f"against the flat frame <= floor {floor}")
+    return rows
+
+
+def phase_compact_eval(torch, dev):
+    """The exact eval frame (val/r_0, 800x800) of the train main path's workspace under
+    the settings of STAGE1_SETTINGS, each through a trainer built from main_nerf's flags."""
+    from palettenerf_torch.config import Config
+    from palettenerf_torch.data.provider import NeRFDataset
+
+    data = NeRFDataset(Config(path=SCENE, bound=1.0, scale=0.8), type="val").collate(0)
+    img = data["images"]
+    gt = img[..., :3] * img[..., 3:] + (1.0 - img[..., 3:])
+    rows = _eval_settings_run(
+        torch, lambda flags: _stage1_trainer(torch, dev, flags, os.path.join(ROOT, NERF_WS)),
+        data, gt, "stage-1 eval", STAGE1_SETTINGS, STAGE1_PSNR_FLOORS)
+    for name, row in rows.items():
+        if name not in STAGE1_PSNR_FLOORS and not row["psnr"] > PSNR_FLOOR:
+            raise AssertionError(f"stage-1 eval {name}: {row['psnr']:.3f} dB <= {PSNR_FLOOR}")
+    return rows
+
+
+def phase_compact_palette(torch, dev):
+    """The palette eval frame (val/r_0, 800x800) of the palette workspace under the
+    settings of PALETTE_SETTINGS (trainers loaded as ``main_palette --test`` loads them);
+    then one EditingSession frame at the --gui defaults with --eval_fine_grid 256
+    --eval_compact_frac 0.125 at test view 0 (``jump_to_pose(test poses, 0)``)."""
+    import numpy as np
+
+    from palettenerf_torch import main_palette
+    from palettenerf_torch.config import Config
+    from palettenerf_torch.data.palette_provider import PaletteDataset
+    from palettenerf_torch.data.provider import NeRFDataset
+    from palettenerf_torch.gui import EditingSession
+
+    data = NeRFDataset(Config(path=SCENE, bound=1.0, scale=0.8), type="val").collate(0)
+    img = data["images"]
+    gt = img[..., :3] * img[..., 3:] + (1.0 - img[..., 3:])
+    argv = PALETTE_TRAIN_ARGS + ["--test", "--version_id", "1"]
+    rows = _eval_settings_run(
+        torch, lambda flags: main_palette.load_test_trainer(argv + list(flags), device=dev)[1],
+        data, gt, "palette eval", PALETTE_SETTINGS, PALETTE_PSNR_FLOORS)
+    flags = EVAL_SETTINGS["fine+compact"]
+    edit = {}
+    for name, f in (("plain", []), ("fine+compact", flags)):
+        cfg, tr = main_palette.load_test_trainer(argv + list(f), device=dev)
+        sess = EditingSession(tr, W=cfg.W, H=cfg.H, radius=cfg.radius, fovy=cfg.fovy)
+        sess.jump_to_pose(PaletteDataset(cfg, type="test").poses, 0)
+        sess.render()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame = sess.render()
+        edit[name] = (time.perf_counter() - t0, frame["image"], tr.last_compact_overflow)
+        del sess, tr
+        torch.cuda.empty_cache()
+    psnr = _frame_psnr(torch, edit["fine+compact"][1], edit["plain"][1])
+    log(f"edit frame {cfg.W}x{cfg.H} at test view 0 (jump_to_pose to test pose 0, radius "
+        f"{cfg.radius}): {edit['plain'][0]:.3f} s plain, {edit['fine+compact'][0]:.3f} s with "
+        f"{' '.join(flags)} (overflow {edit['fine+compact'][2]}), {psnr:.2f} dB against the "
+        f"plain frame")
+    if not np.isfinite(edit["fine+compact"][1]).all() or not psnr > EDIT_COMPACT_PSNR_FLOOR:
+        raise AssertionError(f"edit frame with {flags}: {psnr:.3f} dB against the plain frame")
+    return rows, {"plain_s": edit["plain"][0], "fine_compact_s": edit["fine+compact"][0],
+                  "overflow": edit["fine+compact"][2], "psnr_vs_plain": psnr}
 
 
 def phase_o2_reference(torch, dev):
@@ -1559,6 +1933,9 @@ def main() -> int:
     wg_entry = phase_window_gather(torch, dev)
     phase_reference(torch, dev)
     train_launches, path_times, train_ds, stage1, o_psnr = phase_main_path(torch, dev)
+    compact_ref_err = phase_compaction_reference(torch, dev)
+    compact_launches, compact_train, compact_stream = phase_compact_train(torch, dev, train_ds)
+    compact_eval = phase_compact_eval(torch, dev)
     o2_ref_err = phase_o2_reference(torch, dev)
     o2_launches, o2 = phase_o2_main_path(torch, dev, train_ds, o_psnr)
     phase_palette_reference(torch, dev)
@@ -1568,10 +1945,11 @@ def main() -> int:
     phase_edit_reference(torch, dev)
     edit_launches = phase_edit(torch, dev, stage1)
     del stage1
+    compact_palette, compact_edit = phase_compact_palette(torch, dev)
     o2_palette_launches, o2_edit_launches, o2_palette = phase_o2_palette(
         torch, dev, o_palette_psnr, n_views)
     for k in kernels:
-        k["path"] = "train, palette, edit, train-O2, palette-O2, edit-O2"
+        k["path"] = "train, palette, edit, train-O2, palette-O2, edit-O2, train-compact"
         k["launches"] = train_launches[k["name"]]
         k["palette_launches"] = palette_launches[k["name"]]
         k["edit_launches"] = edit_launches[k["name"]]
@@ -1582,7 +1960,12 @@ def main() -> int:
         k["O2_reference_max_abs_err"] = o2_ref_err
         k["O2_stream"] = o2["streams"]["O2"]
         k["fast_grad_stream"] = o2["streams"]["fast_grad"]
+        k["train_compact_launches"] = compact_launches[k["name"]]
+        k["compact_stream"] = compact_stream
     kernels.append(wg_entry)
+    log("compaction summary: " + json.dumps({
+        "reference_max_abs_err": compact_ref_err, "train": compact_train,
+        "stage1_eval": compact_eval, "palette_eval": compact_palette, "edit": compact_edit}))
     log("-O2 summary: " + json.dumps({"train": {k: v for k, v in o2.items() if k != "streams"},
                                       "palette": o2_palette}))
     phase_serve_reference(torch, dev)

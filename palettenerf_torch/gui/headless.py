@@ -221,8 +221,9 @@ def stylizer_problem(trainer, rays_o: np.ndarray, rays_d: np.ndarray,
     background against the targets, plus ``arap_weight`` times the ARAP penalty."""
     from ..models.palette import palette_forward
     from ..ops.composite import composite_channels, composite_weights
+    from ..ops.march import march_rays
     from ..ops.rays import near_far_from_aabb
-    from ..render.nerf_renderer import _aabb, _march
+    from ..render.nerf_renderer import _aabb
 
     spec, st, dev = trainer.palette_spec, trainer.eval_settings, trainer.device
     params = trainer.eval_params()
@@ -232,7 +233,9 @@ def stylizer_problem(trainer, rays_o: np.ndarray, rays_d: np.ndarray,
     n = ro.shape[0]
     with torch.no_grad():
         nears, fars = near_far_from_aabb(ro, rd, _aabb(st, dev), st.min_near)
-        m = _march(ro, rd, nears, fars, trainer.grid_state.bitfield, st, S)
+        # the flat march on the train grid, as JAX's fit_stylizer marches (headless.py:269)
+        m = march_rays(ro, rd, nears, fars, trainer.grid_state.bitfield, st.bound,
+                       st.cascade, st.grid_size, st.dt_gamma, st.max_steps, S)
         xyzs = m.xyzs.reshape(-1, 3)
         dirs = rd[:, None, :].expand_as(m.xyzs).reshape(-1, 3)
         sigma, _, omega, off_rad, view_dep, _ = palette_forward(params, spec, xyzs, dirs)

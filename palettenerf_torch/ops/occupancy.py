@@ -37,6 +37,12 @@ def packbits(occ: torch.Tensor) -> torch.Tensor:
     return (bits * weights).sum(-1).to(torch.uint8)
 
 
+def unpackbits(bitfield: torch.Tensor) -> torch.Tensor:
+    """uint8 [n] -> uint8 0/1 [n*8], the inverse of ``packbits``."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=bitfield.device)
+    return ((bitfield[:, None] >> shifts) & 1).reshape(-1)
+
+
 def occ_lookup(bitfield: torch.Tensor, cell_index: torch.Tensor) -> torch.Tensor:
     """Test occupancy bits for flat cell indices [...] -> bool [...]."""
     byte = bitfield[cell_index >> 3].to(torch.int32)
@@ -106,6 +112,65 @@ def update_density_grid(
     thresh = torch.clamp(mean_density, max=density_thresh)
     bitfield = packbits((new_grid > thresh).reshape(-1))
     return GridState(new_grid, bitfield, mean_density, state.iter_density + 1)
+
+
+def _fine_cell_centres(F: int, b: float, start: int, stop: int, device) -> torch.Tensor:
+    """Centres [stop-start, 3] of the fine cells ``start:stop`` (flat ``x*F^2 + y*F + z``)
+    of a cascade whose box is ``b``: ``cell_world_coords``' values, for a slice only."""
+    i = torch.arange(start, stop, dtype=torch.int64, device=device)
+    unit = torch.stack([i // (F * F), (i // F) % F, i % F], -1).to(torch.float32)
+    unit = 2.0 * unit / (F - 1) - 1.0
+    return unit * (b - b / F)
+
+
+@torch.no_grad()
+def bake_fine_bitfield(
+    state: GridState,
+    density_fn: Callable[[torch.Tensor], torch.Tensor],
+    bound: float,
+    density_thresh: float,
+    fine_size: int = 256,
+    grid_size: int = 128,
+    density_scale: float = 1.0,
+    chunk: int = 1 << 19,
+) -> torch.Tensor:
+    """Bake a finer eval-time occupancy bitfield from the trained field (JAX
+    ``ops/occupancy.py:138-213``), on the state's device, without a host round trip.
+
+    - the threshold ``min(mean_density, density_thresh)`` of the refresh, applied to the
+      density at the centres of the ``fine_size``^3 cells of each cascade, queried
+      ``chunk`` points at a time;
+    - a 3^3 dilation with zeroed borders (a max-pool over the 0/1 volume padded with
+      zeros, which is what JAX's rolls with zeroed wrap-around give);
+    - ANDed with the train bitfield upsampled to the fine grid, so the fine grid only
+      refines: every cell the train grid culls stays culled.
+
+    Returns uint8 [CAS * F^3 // 8] in the marcher's linear bit order, for
+    ``march_rays(..., bitfield=(train_bits, fine_bits), fine_grid_size=F)``.
+    """
+    cascade = state.density_grid.shape[0]
+    device = state.density_grid.device
+    F_ = fine_size
+    if F_ % grid_size:
+        raise ValueError(f"fine grid {F_} is not a multiple of the train grid {grid_size}")
+    rep = F_ // grid_size
+    thresh = torch.clamp(state.mean_density, max=density_thresh)
+    coarse = unpackbits(state.bitfield).reshape(cascade, grid_size, grid_size, grid_size)
+    n = F_ ** 3
+    out = []
+    for cas in range(cascade):
+        b = min(2.0 ** cas, bound)
+        occ = torch.empty((n,), dtype=torch.float32, device=device)
+        for s in range(0, n, chunk):
+            pts = _fine_cell_centres(F_, b, s, min(s + chunk, n), device)
+            occ[s:s + pts.shape[0]] = (density_fn(pts) * density_scale > thresh).float()
+        occ = torch.nn.functional.max_pool3d(occ.reshape(1, 1, F_, F_, F_), 3, stride=1,
+                                             padding=1).reshape(F_, F_, F_) > 0
+        up = coarse[cas].bool()
+        for ax in range(3):
+            up = up.repeat_interleave(rep, dim=ax)
+        out.append(packbits((occ & up).reshape(-1)))
+    return torch.cat(out)
 
 
 @torch.no_grad()

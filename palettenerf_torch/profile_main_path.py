@@ -2,6 +2,8 @@
 
 - train: one ``-O`` training epoch (100 steps with their grid refreshes) and one exact
   eval frame of ``data_proc/proc_toys`` at full width, after a warm-up epoch;
+- eval: one exact 800x800 eval frame (``val/r_0``) of the trained stage-1 workspace
+  ``--nerf_ws``, after a warm-up frame (which bakes the ``--eval_fine_grid`` bitfield);
 - palette: one PaletteNeRF training epoch (100 steps, smooth loss on, basis colors
   unfrozen: the graph of most of a training run) and one eval frame, resumed from the
   palette workspace ``--palette_ws`` on the stage-1 workspace ``--nerf_ws``;
@@ -13,14 +15,17 @@
   frame, a region recolor frame, a 150-step stylizer fit on one correspondence, a
   stylized frame and a 16-step training burst.
 
-The palette, serve and edit parts default to the workspaces ``chip_smoke.py`` trains
+The eval, palette, serve and edit parts default to the workspaces ``chip_smoke.py`` trains
 (full width), so run it first. ``--O2`` trains (train, palette) with ``-O2`` in place of
 ``-O``: the stochastic trilerp, the nearest-corner / drawn-row backward and 8 of 16
-levels scattered per step.
+levels scattered per step. The opt-in render flags ``--march_groups``,
+``--eval_fine_grid``, ``--eval_compact_frac`` and ``--train_compact_frac`` are passed on
+to the trainers of the train, eval, palette and edit parts.
 
     python -m palettenerf_torch.profile_main_path [--steps_warmup 100] [--O2]
-        [--only train|palette|serve|edit] [--serve_ckpt PATH] [--palette_ws DIR]
-        [--nerf_ws DIR]
+        [--only train|eval|palette|serve|edit] [--serve_ckpt PATH] [--palette_ws DIR]
+        [--nerf_ws DIR] [--march_groups G] [--eval_fine_grid F] [--eval_compact_frac f]
+        [--train_compact_frac f]
 
 Prints, for each window, the wall time, the summed device time of all kernels and its
 share of the wall time (busy share; one stream, so kernels do not overlap), the number
@@ -71,9 +76,18 @@ def _profile(what: str, fn, top: int = 15):
               f"device time per launch ({own[0].name[:60]})")
 
 
+RENDER_FLAGS = ("march_groups", "eval_fine_grid", "eval_compact_frac", "train_compact_frac")
+
+
+def _render_args(a) -> list:
+    """The render flags that were given, as CLI arguments."""
+    return [x for f in RENDER_FLAGS if getattr(a, f) is not None
+            for x in (f"--{f}", str(getattr(a, f)))]
+
+
 def _args(a):
-    """The proc_toys flags, with -O2 in place of -O under ``--O2``."""
-    return [("-O2" if a.O2 and v == "-O" else v) for v in ARGS]
+    """The proc_toys flags, with -O2 in place of -O under ``--O2``, and the render flags."""
+    return [("-O2" if a.O2 and v == "-O" else v) for v in ARGS] + _render_args(a)
 
 
 def _profile_flags(cfg) -> dict:
@@ -97,6 +111,27 @@ def profile_train(a):
     data = valid_ds.collate(0)
     tr.eval_step_full(data)
     _profile(f"eval frame {data['W']}x{data['H']}", lambda: tr.eval_step_full(data))
+
+
+def profile_eval(a):
+    cfg = Config.from_args(build_parser().parse_args(_args(a)))
+    spec = NeRFSpec.build(bound=cfg.bound, bg_radius=cfg.bg_radius,
+                          log2_hashmap_size=cfg.log2_hashmap_size,
+                          grid_levels=cfg.grid_levels, **_profile_flags(cfg))
+    tr = Trainer("ngp", cfg, spec, workspace=a.nerf_ws, use_checkpoint="latest", mute=True,
+                 device="cuda")
+    if tr.global_step == 0:
+        raise FileNotFoundError(f"no stage-1 checkpoint under {a.nerf_ws}")
+    data = NeRFDataset(cfg, type="val").collate(0)
+    t0 = time.perf_counter()
+    tr.eval_step_full(data)
+    torch.cuda.synchronize()
+    print(f"warm-up eval frame {time.perf_counter() - t0:.3f} s"
+          + (f", fine bake {tr.fine_bake_stats}" if cfg.eval_fine_grid else ""))
+    flags = " ".join(_render_args(a)) or "flat"
+    _profile(f"eval frame {data['W']}x{data['H']} ({flags})", lambda: tr.eval_step_full(data))
+    if tr.last_compact_overflow is not None:
+        print(f"   compact overflow {tr.last_compact_overflow} samples")
 
 
 def profile_palette(a):
@@ -163,9 +198,9 @@ def profile_edit(a):
     from .gui import EditingSession
 
     version = os.path.basename(a.palette_ws).split("_")[-1]
-    argv = [ARGS[0], a.nerf_ws] + ARGS[1:] + ["--use_normalized_palette",
-                                               "--use_initialization_from_rgbxy", "--dt_gamma",
-                                               "0", "--test", "--version_id", version]
+    argv = [ARGS[0], a.nerf_ws] + ARGS[1:] + _render_args(a) + [
+        "--use_normalized_palette", "--use_initialization_from_rgbxy", "--dt_gamma", "0",
+        "--test", "--version_id", version]
     cfg, tr = main_palette.load_test_trainer(argv, device="cuda")
     if tr.global_step == 0:
         raise FileNotFoundError(f"no palette checkpoint under {a.palette_ws}")
@@ -190,8 +225,12 @@ def profile_edit(a):
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--steps_warmup", type=int, default=100)
-    p.add_argument("--only", choices=["train", "palette", "serve", "edit"], default=None)
+    p.add_argument("--only", choices=["train", "eval", "palette", "serve", "edit"],
+                   default=None)
     p.add_argument("--O2", action="store_true", help="train and palette with -O2")
+    for f in RENDER_FLAGS:
+        p.add_argument(f"--{f}", type=int if f in ("march_groups", "eval_fine_grid")
+                       else float, default=None, help="passed on to the trainers")
     pal_ws = os.path.join(_ROOT, "results_palette", "chip_smoke", "version_1")
     p.add_argument("--serve_ckpt", default=pal_ws,
                    help="palette checkpoint or directory to serve")
@@ -205,6 +244,8 @@ def main(argv=None):
                          check=True).stdout.strip())
     if a.only in (None, "train"):
         profile_train(a)
+    if a.only in (None, "eval"):
+        profile_eval(a)
     if a.only in (None, "palette"):
         profile_palette(a)
     if a.only in (None, "serve"):

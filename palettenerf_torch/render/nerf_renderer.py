@@ -6,12 +6,18 @@ Port of ``palettenerf_tpu/render/nerf_renderer.py``:
              -> masked composite (ops.composite)
 
 ``render_nerf_train`` (:142-217) is differentiable; its march jitter ``noise`` [N],
-background ``bg_color`` and encode draws ``rand`` (``models.nerf.encode_rand_for`` over
-all N*S sample slots, padding included) are arguments (drawn by the trainer).
-``render_nerf_eval`` (:414-475) renders without jitter; with ``compaction_rounds`` it dispatches to
-``render_nerf_eval_compact`` (:299-411), the fixed-schedule version of the
-reference's alive-ray loop. Sample compaction (``compact_frac``), the hierarchical
-march, the fine eval grid and the background net are not ported yet.
+background ``bg_color`` and encode draws ``rand`` (``models.nerf.encode_rand_for``) are
+arguments (drawn by the trainer). ``render_nerf_eval`` (:414-475) renders without
+jitter; with ``compaction_rounds`` it dispatches to ``render_nerf_eval_compact``
+(:299-411), the fixed-schedule version of the reference's alive-ray loop.
+
+The opt-in options of ``RenderSettings`` act as in JAX: ``march_groups`` takes the
+hierarchical march (``_sup`` derives its supercell mip from the bitfield),
+``fine_grid_size`` expects the bitfield pair ``(train_bits, fine_bits)``, and
+``compact_frac`` runs the network only on the march-valid samples, packed into a static
+budget (``forward_compact``): valid samples past the budget are dropped and counted in
+the output's ``compact_overflow`` [1], a device tensor. The background net is not
+ported.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import torch
 from ..models.nerf import NeRFSpec, Params, nerf_forward
 from ..ops.composite import composite_rays, composite_weights
 from ..ops.hashgrid_fast import EncodeRand
-from ..ops.march import march_rays
+from ..ops.march import build_super_bitfield, march_rays, super_bitfield_ok
 from ..ops.rays import near_far_from_aabb
 
 
@@ -43,6 +49,13 @@ class RenderSettings:
     # eval compaction schedule ((ray_divisor, samples), ...); round 0 has divisor 1.
     # Empty = one fixed-width pass.
     compaction_rounds: tuple = ()
+    # group slots of the hierarchical march (0: flat candidate tests)
+    march_groups: int = 0
+    # the network runs on the valid samples only, in ceil-to-128 of frac * N * S slots
+    # (0: off); valid samples past the budget are dropped and counted
+    compact_frac: float = 0.0
+    # eval-only finer culling grid: the renders then take bitfield=(train, fine bits)
+    fine_grid_size: int = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -56,11 +69,66 @@ def _aabb(settings: RenderSettings, device) -> torch.Tensor:
     return _aabb_of(settings.bound, torch.device(device))
 
 
+def _sup(bitfield, settings: RenderSettings):
+    """The supercell mip of the hierarchical march (JAX :71-83), or None when the
+    settings do not take it or it is statically unsound. Derived from the train bitfield
+    (of a ``(train, fine)`` pair, the first) at each render, as in JAX."""
+    if settings.march_groups <= 0 or not super_bitfield_ok(
+            settings.bound, settings.grid_size, settings.cascade):
+        return None
+    if isinstance(bitfield, (tuple, list)):
+        bitfield = bitfield[0]
+    return build_super_bitfield(bitfield, settings.grid_size, settings.cascade)
+
+
 def _march(rays_o, rays_d, nears, fars, bitfield, settings: RenderSettings,
            num_samples: int, noise=None):
     return march_rays(rays_o, rays_d, nears, fars, bitfield, settings.bound,
                       settings.cascade, settings.grid_size, settings.dt_gamma,
-                      settings.max_steps, num_samples, noise)
+                      settings.max_steps, num_samples, noise,
+                      sup_bitfield=_sup(bitfield, settings),
+                      max_groups=settings.march_groups,
+                      fine_grid_size=settings.fine_grid_size)
+
+
+def forward_compact(forward_fn, valid: torch.Tensor, budget: int, *sample_args):
+    """Run ``forward_fn`` on the ``valid`` [M] samples only (JAX :86-114).
+
+    The valid slots are packed, in order, into the front of a static ``budget``-slot
+    buffer (a cumsum and one scatter of slot ids; samples past the budget go to a sink
+    row that is cut off, JAX's ``mode="drop"``); ``forward_fn(*[a[src] for a in
+    sample_args])`` returns a tuple of [budget, ...] tensors, each expanded back to
+    [M, ...] with one gather, zero at invalid and dropped slots. Slots of the buffer past
+    the valid count evaluate sample 0 and are never read. Gradients flow through both
+    gathers; dropped samples get none. No host synchronisation.
+    """
+    M = valid.shape[0]
+    dev = valid.device
+    pos = torch.cumsum(valid.to(torch.int32), 0) - 1
+    in_budget = valid & (pos < budget)
+    src = torch.zeros((budget + 1,), dtype=torch.int64, device=dev)
+    src.scatter_(0, torch.where(in_budget, pos, budget).to(torch.int64),
+                 torch.arange(M, dtype=torch.int64, device=dev))
+    src = src[:budget]
+    outs = forward_fn(*(a.index_select(0, src) for a in sample_args))
+    posc = pos.clamp(0, budget - 1).to(torch.int64)
+    expanded = []
+    for o in outs:
+        e = o.index_select(0, posc)
+        keep = in_budget.reshape(in_budget.shape + (1,) * (e.ndim - 1))
+        expanded.append(torch.where(keep, e, torch.zeros((), dtype=e.dtype, device=dev)))
+    return tuple(expanded)
+
+
+def _compact_budget(settings: RenderSettings, n_slots: int) -> int:
+    """Compact buffer slots: ``compact_frac`` of ``n_slots``, rounded up to 128."""
+    b = int(n_slots * settings.compact_frac + 0.5)
+    return max(128, min(n_slots, (b + 127) // 128 * 128))
+
+
+def compact_overflow(valid: torch.Tensor, budget: int) -> torch.Tensor:
+    """Valid samples dropped by the budget, int32 [1], on the device (JAX :122-129)."""
+    return (valid.sum(dtype=torch.int32) - budget).clamp_min(0)[None]
 
 
 def _background(bg_color, device) -> torch.Tensor:
@@ -83,19 +151,29 @@ def render_nerf_train(
 ):
     """Differentiable render of a flat ray batch [N, 3]. The network runs in training
     mode (``-O2``: the stochastic trilerp and level subsampling over ``rand``, whose ``u``
-    has N * num_samples rows; without ``rand`` the corner draw hashes the positions and
-    every level is scattered).
+    has ``train_rows(settings, N)`` rows; without ``rand`` the corner draw hashes the
+    positions and every level is scattered).
 
-    Returns dict(image [N,3], depth [N], weights_sum [N], rgb_norm [N]).
+    Returns dict(image [N,3], depth [N], weights_sum [N], rgb_norm [N]), and
+    ``compact_overflow`` [1] with ``compact_frac``.
     """
     n = rays_o.shape[0]
     nears, fars = near_far_from_aabb(rays_o, rays_d, _aabb(settings, rays_o.device),
                                      settings.min_near)
     bg = _background(bg_color, rays_o.device)
     m = _march(rays_o, rays_d, nears, fars, bitfield, settings, settings.num_samples, noise)
-    dirs = rays_d[:, None, :].expand_as(m.xyzs)
-    sigmas, rgbs = nerf_forward(params, spec, m.xyzs.reshape(-1, 3), dirs.reshape(-1, 3),
-                                training=True, rand=rand)
+    dirs = rays_d[:, None, :].expand_as(m.xyzs).reshape(-1, 3)
+    x = m.xyzs.reshape(-1, 3)
+    overflow = None
+    if settings.compact_frac > 0:
+        budget = _compact_budget(settings, x.shape[0])
+        valid = m.mask.reshape(-1)
+        overflow = compact_overflow(valid, budget)
+        sigmas, rgbs = forward_compact(
+            lambda xc, dc: nerf_forward(params, spec, xc, dc, training=True, rand=rand),
+            valid, budget, x, dirs)
+    else:
+        sigmas, rgbs = nerf_forward(params, spec, x, dirs, training=True, rand=rand)
     sigmas = sigmas.reshape(n, -1) * settings.density_scale
     rgbs = rgbs.reshape(n, -1, 3)
 
@@ -110,7 +188,17 @@ def render_nerf_train(
 
     image = image + (1.0 - ws)[:, None] * bg
     depth_out = (depth - nears).clamp_min(0.0) / (fars - nears).clamp_min(1e-6)
-    return {"image": image, "depth": depth_out, "weights_sum": ws, "rgb_norm": rgb_norm}
+    out = {"image": image, "depth": depth_out, "weights_sum": ws, "rgb_norm": rgb_norm}
+    if overflow is not None:
+        out["compact_overflow"] = overflow
+    return out
+
+
+def train_rows(settings: RenderSettings, n_rays: int) -> int:
+    """Rows the train render runs the network on (and the ``-O2`` draw covers): every
+    sample slot, or the compact budget with ``compact_frac`` (JAX :178-186)."""
+    n_slots = n_rays * settings.num_samples
+    return _compact_budget(settings, n_slots) if settings.compact_frac > 0 else n_slots
 
 
 @torch.no_grad()
@@ -139,6 +227,7 @@ def render_nerf_eval_compact(
     depth = torch.zeros((n,), dtype=torch.float32, device=device)
     ws = torch.zeros((n,), dtype=torch.float32, device=device)
     trans = torch.ones((n,), dtype=torch.float32, device=device)
+    overflow = torch.zeros((1,), dtype=torch.int32, device=device)
 
     offset = 0
     for divisor, s_r in rounds:
@@ -149,14 +238,19 @@ def render_nerf_eval_compact(
             xyz, dts, t_cum, mask = m.xyzs[:, cols], m.dts[:, cols], m.t_cum[:, cols], m.mask[:, cols]
             rd_r, t_in = rays_d, trans
         else:
+            # the top n_r rays by remaining transmittance; among equal ones the lower
+            # index, as lax.top_k orders them (torch.topk leaves ties in no set order)
             alive = torch.where(m.mask[:, offset], trans, torch.zeros_like(trans))
-            sel = torch.topk(alive, n_r).indices
+            sel = torch.sort(alive, descending=True, stable=True).indices[:n_r]
             xyz, dts = m.xyzs[sel, cols], m.dts[sel, cols]
             t_cum, mask = m.t_cum[sel, cols], m.mask[sel, cols]
             rd_r, t_in = rays_d[sel], trans[sel]
 
         dirs = rd_r[:, None, :].expand_as(xyz)
-        sig, rgb = nerf_forward(params, spec, xyz.reshape(-1, 3), dirs.reshape(-1, 3))
+        sig, rgb = _eval_forward(params, spec, settings, xyz, dirs, mask)
+        if settings.compact_frac > 0:
+            overflow = overflow + compact_overflow(mask.reshape(-1), _compact_budget(
+                settings, mask.numel()))
         sig = sig.reshape(n_r, s_r).float() * settings.density_scale
         rgb = rgb.reshape(n_r, s_r, 3).float()
 
@@ -182,7 +276,20 @@ def render_nerf_eval_compact(
     image = image + (1.0 - ws)[:, None] * bg
     depth_abs = depth + ws * nears
     depth_out = (depth_abs - nears).clamp_min(0.0) / (fars - nears).clamp_min(1e-6)
-    return {"image": image, "depth": depth_out, "depth_origin": depth_abs, "weights_sum": ws}
+    out = {"image": image, "depth": depth_out, "depth_origin": depth_abs, "weights_sum": ws}
+    if settings.compact_frac > 0:
+        out["compact_overflow"] = overflow
+    return out
+
+
+def _eval_forward(params, spec, settings: RenderSettings, xyz, dirs, mask):
+    """``nerf_forward`` over the sample slots [..., 3], or over the valid ones in the
+    compact budget with ``compact_frac``: (sigma [M], rgb [M, 3])."""
+    x, d = xyz.reshape(-1, 3), dirs.reshape(-1, 3)
+    if settings.compact_frac <= 0:
+        return nerf_forward(params, spec, x, d)
+    return forward_compact(lambda xc, dc: nerf_forward(params, spec, xc, dc),
+                           mask.reshape(-1), _compact_budget(settings, x.shape[0]), x, d)
 
 
 @torch.no_grad()
@@ -207,7 +314,7 @@ def render_nerf_eval(
     bg = _background(bg_color, rays_o.device)
     m = _march(rays_o, rays_d, nears, fars, bitfield, settings, settings.num_samples)
     dirs = rays_d[:, None, :].expand_as(m.xyzs)
-    sigmas, rgbs = nerf_forward(params, spec, m.xyzs.reshape(-1, 3), dirs.reshape(-1, 3))
+    sigmas, rgbs = _eval_forward(params, spec, settings, m.xyzs, dirs, m.mask)
     sigmas = sigmas.reshape(n, -1) * settings.density_scale
     rgbs = rgbs.reshape(n, -1, 3)
     ws, depth, image = composite_rays(sigmas, rgbs, m.dts, m.t_cum, m.mask, settings.t_thresh)
@@ -215,4 +322,8 @@ def render_nerf_eval(
     # inference depth is absolute in the reference (raymarching.cu:1078-1079)
     depth_abs = depth + ws * nears
     depth_out = (depth_abs - nears).clamp_min(0.0) / (fars - nears).clamp_min(1e-6)
-    return {"image": image, "depth": depth_out, "depth_origin": depth_abs, "weights_sum": ws}
+    out = {"image": image, "depth": depth_out, "depth_origin": depth_abs, "weights_sum": ws}
+    if settings.compact_frac > 0:
+        out["compact_overflow"] = compact_overflow(
+            m.mask.reshape(-1), _compact_budget(settings, m.mask.numel()))
+    return out

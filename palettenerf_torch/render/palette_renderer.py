@@ -17,8 +17,11 @@ scalar ``offsets_weight`` / ``view_dep_weight`` dials (:484, :494).
 
 Where the JAX functions draw from a key, these take the draws as arguments: the march
 jitter ``noise`` [N], the smooth-loss jitter ``jit_u`` [N*S, 3] and the encode draws
-``rand`` (``models.nerf.encode_rand_for`` over the N*S slots), which every encoder of the
-step shares, the smooth loss's jittered pass included.
+``rand`` (``models.nerf.encode_rand_for`` over ``nerf_renderer.train_rows`` rows: the N*S
+slots, or the compact budget), which every encoder of the step shares, the smooth loss's
+jittered pass included. With ``compact_frac`` every per-sample computation runs on the
+march-valid samples in the compact budget (``nerf_renderer.forward_compact``), ``jit_u``
+compacted with them, and the outputs carry ``compact_overflow``.
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ from ..ops.composite import composite_channels, composite_weights
 from ..ops.hashgrid_fast import EncodeRand
 from ..ops.rays import near_far_from_aabb
 from ..utils.color import hsv_to_rgb, rgb_to_hsv
-from .nerf_renderer import RenderSettings, _aabb, _background, _march
+from .nerf_renderer import (RenderSettings, _aabb, _background, _compact_budget, _march,
+                            compact_overflow, forward_compact)
 
 
 class RegionEdit(NamedTuple):
@@ -220,46 +224,65 @@ def render_palette_train(
     S = settings.num_samples
     x = m.xyzs.reshape(-1, 3)
     d = rays_d[:, None, :].expand_as(m.xyzs).reshape(-1, 3)
-    M = x.shape[0]
+    if require_smooth_loss and jit_u is None:
+        raise ValueError("require_smooth_loss needs jit_u [N*S, 3]")
 
-    sigma, clip_feat, omega, offsets_radiance, view_dep, diffuse = _train_forward(
-        params, spec, x, d, rand)
-    sigma = sigma * settings.density_scale                    # detached: renderer.py:334-335
+    def sample_fields(x, d, jit_u=None):
+        """Every per-sample quantity of a [B, ...] batch: (sigma, rgbs, omega_sparsity,
+        offsets_norm, view_dep_norm, smooth_norm, view_dep, direct_rgb, diffuse,
+        clip_feat, omega)."""
+        mb = x.shape[0]
+        sigma, clip_feat, omega, offsets_radiance, view_dep, diffuse = _train_forward(
+            params, spec, x, d, rand)
+        sigma = sigma * settings.density_scale                # detached: renderer.py:334-335
 
-    offsets = offsets_radiance[..., :-1].reshape(M, P, 3)
-    radiance = offsets_radiance[..., -1:].reshape(M, 1, 1)
-    basis_color = clip01(params["basis_color"])[None]
-    if freeze_basis_color:
-        basis_color = basis_color.detach()
-    final_color = F.softplus(radiance) * (basis_color + offsets)
-    rgbs = (omega.reshape(M, P, 1) * final_color).sum(-2) + view_dep.detach()   # :349-351
-    direct_rgb = diffuse + view_dep
+        offsets = offsets_radiance[..., :-1].reshape(mb, P, 3)
+        radiance = offsets_radiance[..., -1:].reshape(mb, 1, 1)
+        basis_color = clip01(params["basis_color"])[None]
+        if freeze_basis_color:
+            basis_color = basis_color.detach()
+        final_color = F.softplus(radiance) * (basis_color + offsets)
+        rgbs = (omega.reshape(mb, P, 1) * final_color).sum(-2) + view_dep.detach()  # :349-351
+        direct_rgb = diffuse + view_dep
 
-    # per-sample regularizer channels (:357-359)
-    omega_sparsity = omega.sum(-1, keepdim=True) / ((omega ** 2).sum(-1, keepdim=True) + 1e-6) - 1.0
-    offsets_norm = (offsets ** 2).sum(-1).sum(-1, keepdim=True)
-    view_dep_norm = (view_dep ** 2).sum(-1, keepdim=True)
+        # per-sample regularizer channels (:357-359)
+        omega_sparsity = omega.sum(-1, keepdim=True) / ((omega ** 2).sum(-1, keepdim=True)
+                                                        + 1e-6) - 1.0
+        offsets_norm = (offsets ** 2).sum(-1).sum(-1, keepdim=True)
+        view_dep_norm = (view_dep ** 2).sum(-1, keepdim=True)
 
-    if require_smooth_loss:
-        # jittered re-forward with bilateral weight (:360-378)
-        if jit_u is None:
-            raise ValueError("require_smooth_loss needs jit_u [N*S, 3]")
-        x_diff = (x + jit_u * b * 0.03).clamp(-b, b)
-        _, clip_d, omega_d, _, _, diffuse_d = _train_forward(params, spec, x_diff, d, rand)
-        with torch.no_grad():
-            xyz_w = ((x - x_diff) ** 2).sum(-1, keepdim=True) / b ** 2 / spec.smooth_sigma_xyz
-            rgb_w = ((diffuse - diffuse_d) ** 2).sum(-1, keepdim=True) / spec.smooth_sigma_color
-            if spec.pred_clip and spec.smooth_sigma_clip > 0:
-                clip_w = torch.sqrt(((clip_feat - clip_d) ** 2).sum(-1, keepdim=True)
-                                    + 1e-12) / spec.smooth_sigma_clip
-            else:
-                clip_w = 0.0
-            smooth_w = torch.exp(-xyz_w - rgb_w - clip_w)
-        smooth_norm = ((omega_d - omega) ** 2).sum(-1, keepdim=True) * smooth_w
-        if spec.pred_clip:
-            smooth_norm = smooth_norm + ((clip_d - clip_feat) ** 2).sum(-1, keepdim=True) * smooth_w
+        if require_smooth_loss:
+            # jittered re-forward with bilateral weight (:360-378)
+            x_diff = (x + jit_u * b * 0.03).clamp(-b, b)
+            _, clip_d, omega_d, _, _, diffuse_d = _train_forward(params, spec, x_diff, d, rand)
+            with torch.no_grad():
+                xyz_w = ((x - x_diff) ** 2).sum(-1, keepdim=True) / b ** 2 / spec.smooth_sigma_xyz
+                rgb_w = ((diffuse - diffuse_d) ** 2).sum(-1, keepdim=True) / spec.smooth_sigma_color
+                if spec.pred_clip and spec.smooth_sigma_clip > 0:
+                    clip_w = torch.sqrt(((clip_feat - clip_d) ** 2).sum(-1, keepdim=True)
+                                        + 1e-12) / spec.smooth_sigma_clip
+                else:
+                    clip_w = 0.0
+                smooth_w = torch.exp(-xyz_w - rgb_w - clip_w)
+            smooth_norm = ((omega_d - omega) ** 2).sum(-1, keepdim=True) * smooth_w
+            if spec.pred_clip:
+                smooth_norm = smooth_norm + ((clip_d - clip_feat) ** 2).sum(-1, keepdim=True) * smooth_w
+        else:
+            smooth_norm = torch.zeros_like(omega_sparsity)
+        return (sigma, rgbs, omega_sparsity, offsets_norm, view_dep_norm, smooth_norm,
+                view_dep, direct_rgb, diffuse, clip_feat, omega)
+
+    per_sample = (x, d, jit_u) if require_smooth_loss else (x, d)
+    overflow = None
+    if settings.compact_frac > 0:
+        budget = _compact_budget(settings, x.shape[0])
+        valid = m.mask.reshape(-1)
+        overflow = compact_overflow(valid, budget)
+        outs = forward_compact(sample_fields, valid, budget, *per_sample)
     else:
-        smooth_norm = torch.zeros_like(omega_sparsity)
+        outs = sample_fields(*per_sample)
+    (sigma, rgbs, omega_sparsity, offsets_norm, view_dep_norm, smooth_norm, view_dep,
+     direct_rgb, diffuse, clip_feat, omega) = outs
 
     # composite everything with one weight pass
     w, ws, _ = composite_weights(sigma.reshape(n, S), m.dts, m.mask, settings.t_thresh)
@@ -271,7 +294,7 @@ def render_palette_train(
 
     c0, C = 4, spec.clip_dim
     rest = (1.0 - ws)[:, None] * bg
-    return {
+    out = {
         "image": image + rest,
         "depth": (depth - nears).clamp_min(0.0) / (fars - nears).clamp_min(1e-6),
         "weights_sum": ws,
@@ -285,6 +308,9 @@ def render_palette_train(
         "clip_feat": aux_map[:, c0 + 9:c0 + 9 + C],
         "basis_acc": aux_map[:, c0 + 9 + C:c0 + 9 + C + P],
     }
+    if overflow is not None:
+        out["compact_overflow"] = overflow
+    return out
 
 
 @torch.no_grad()
@@ -306,8 +332,10 @@ def render_palette_eval(
     sample slots, no alive-ray loop. Returns the reference's eval dict including the
     per-basis maps (not with ``gui_mode``).
 
-    The field is evaluated only in the slots that hold a sample: the others keep zeros,
-    and their compositing weight is zero either way.
+    The field is evaluated only in the slots that hold a sample: those are gathered (one
+    host read of their count), or with ``compact_frac`` packed into the static compact
+    budget (no host read; the output then carries ``compact_overflow``). The other slots
+    keep zeros, and their compositing weight is zero either way.
     """
     n = rays_o.shape[0]
     P = spec.num_basis
@@ -316,52 +344,70 @@ def render_palette_eval(
     bg = _background(bg_color, dev)
     m = _march(rays_o, rays_d, nears, fars, bitfield, settings, settings.num_samples)
     S = settings.num_samples
-    held = m.mask.reshape(-1).nonzero(as_tuple=True)[0]
-    x = m.xyzs.reshape(-1, 3)[held]
-    d = rays_d[:, None, :].expand_as(m.xyzs).reshape(-1, 3)[held]
-    mb = x.shape[0]
+    x_all = m.xyzs.reshape(-1, 3)
+    d_all = rays_d[:, None, :].expand_as(m.xyzs).reshape(-1, 3)
 
-    sigma, clip_feat, omega, offsets_radiance, view_dep, diffuse = palette_forward(
-        params, spec, x, d)
-    sigma = sigma * settings.density_scale
-    offsets = offsets_radiance[..., :-1].reshape(mb, P, 3)
-    radiance = offsets_radiance[..., -1:].reshape(mb, 1, 1)
-    omega_c = omega.reshape(mb, P, 1)
-    basis_color = params["basis_color"].clamp(0.0, 1.0)[None]
-    unscaled = basis_color + offsets
-    if stylizer is not None:
-        rgbs = apply_stylizer(stylizer, radiance, omega_c, basis_color, offsets, view_dep)
-        basis_rgb = omega_c * (F.softplus(radiance) * unscaled).clamp(0.0, 1.0)
+    def sample_fields(x, d):
+        """(sigma, rgbs, clip_feat, view_dep, direct_rgb, omega, basis_rgb, unscaled) of a
+        [B, 3] batch, each [B, C]."""
+        mb = x.shape[0]
+        sigma, clip_feat, omega, offsets_radiance, view_dep, diffuse = palette_forward(
+            params, spec, x, d)
+        sigma = sigma * settings.density_scale
+        offsets = offsets_radiance[..., :-1].reshape(mb, P, 3)
+        radiance = offsets_radiance[..., -1:].reshape(mb, 1, 1)
+        omega_c = omega.reshape(mb, P, 1)
+        basis_color = params["basis_color"].clamp(0.0, 1.0)[None]
+        unscaled = basis_color + offsets
+        if stylizer is not None:
+            rgbs = apply_stylizer(stylizer, radiance, omega_c, basis_color, offsets, view_dep)
+            basis_rgb = omega_c * (F.softplus(radiance) * unscaled).clamp(0.0, 1.0)
+        else:
+            final_color = F.softplus(radiance) * (basis_color + offsets_weight * offsets)
+            if edit is not None:
+                final_color = apply_region_edit(edit, final_color, x, clip_feat)
+            basis_rgb = omega_c * final_color
+            rgbs = basis_rgb.sum(-2) + view_dep_weight * view_dep  # :494
+        return (sigma[:, None], rgbs, clip_feat, view_dep, diffuse + view_dep, omega,
+                basis_rgb.reshape(mb, P * 3), unscaled.reshape(mb, P * 3))
+
+    overflow = None
+    if settings.compact_frac > 0:
+        budget = _compact_budget(settings, x_all.shape[0])
+        valid = m.mask.reshape(-1)
+        overflow = compact_overflow(valid, budget)
+        outs = [o.reshape(n, S, -1)
+                for o in forward_compact(sample_fields, valid, budget, x_all, d_all)]
     else:
-        final_color = F.softplus(radiance) * (basis_color + offsets_weight * offsets)
-        if edit is not None:
-            final_color = apply_region_edit(edit, final_color, x, clip_feat)
-        basis_rgb = omega_c * final_color
-        rgbs = basis_rgb.sum(-2) + view_dep_weight * view_dep  # :494
+        held = m.mask.reshape(-1).nonzero(as_tuple=True)[0]
 
-    def slots(v):
-        """[held, C] -> [n, S, C], zeros in the slots without a sample."""
-        full = torch.zeros((n * S, v.shape[-1]), dtype=v.dtype, device=dev)
-        return full.index_copy_(0, held, v).reshape(n, S, -1)
+        def slots(v):
+            """[held, C] -> [n, S, C], zeros in the slots without a sample."""
+            full = torch.zeros((n * S, v.shape[-1]), dtype=v.dtype, device=dev)
+            return full.index_copy_(0, held, v).reshape(n, S, -1)
 
-    w, ws, _ = composite_weights(slots(sigma[:, None])[..., 0], m.dts, m.mask, settings.t_thresh)
+        outs = [slots(o) for o in sample_fields(x_all[held], d_all[held])]
+    sigma, rgbs, clip_feat, view_dep, direct_rgb, omega, basis_rgb, unscaled = outs
+
+    w, ws, _ = composite_weights(sigma[..., 0], m.dts, m.mask, settings.t_thresh)
     depth = (w * m.t_cum).sum(-1)
     rest = (1.0 - ws)[:, None] * bg
     depth_abs = depth + ws * nears  # absolute, matching raymarching.cu:1078-1079
     out = {
-        "image": composite_channels(w, slots(rgbs)) + rest,
+        "image": composite_channels(w, rgbs) + rest,
         "depth": (depth_abs - nears).clamp_min(0.0) / (fars - nears).clamp_min(1e-6),
         "depth_origin": depth_abs,
         "weights_sum": ws,
-        "clip_feat": composite_channels(w, slots(clip_feat)),
+        "clip_feat": composite_channels(w, clip_feat),
     }
     if not gui_mode:
-        aux_map = composite_channels(w, slots(torch.cat(
-            [diffuse + view_dep, view_dep, omega, basis_rgb.reshape(mb, P * 3),
-             unscaled.reshape(mb, P * 3)], -1)))
+        aux_map = composite_channels(w, torch.cat(
+            [direct_rgb, view_dep, omega, basis_rgb, unscaled], -1))
         out["direct_rgb"] = aux_map[:, 0:3] + rest
         out["view_dep_rgb"] = aux_map[:, 3:6]
         out["basis_acc"] = aux_map[:, 6:6 + P]
         out["basis_rgb"] = aux_map[:, 6 + P:6 + 4 * P]
         out["unscaled_basis_rgb"] = aux_map[:, 6 + 4 * P:6 + 7 * P]
+    if overflow is not None:
+        out["compact_overflow"] = overflow
     return out

@@ -18,6 +18,9 @@ Port of ``palettenerf_tpu/train/palette_trainer.py`` (reference ``PaletteTrainer
   ``smooth_loss_start_epoch``. A resumed run re-derives them from its epoch.
 - epochs as the stage-1 trainer's: device-sampled pixels, or with ``--random_size`` /
   ``--error_map`` host-collated batches with the error map's update (:433-460).
+- the opt-in render options as in the stage-1 trainer; the ``--eval_fine_grid`` bake
+  queries the palette field's density (:304), which this stage never moves, so it is
+  dropped only when the parameters are replaced (:336, :653).
 - ``extract_palette`` (:1135-1200): render all training views with the stage-1 NeRF,
   keep foreground pixels (weights_sum > 0.5), intensity-normalize the ground-truth colors
   ((rgb + 0.05) / |.|), run the RGBXY extraction -> palette.npz / hist_weights.npz.
@@ -173,6 +176,7 @@ class PaletteTrainer(Trainer):
                                    freeze_basis_color=self.freeze_basis_color,
                                    require_smooth_loss=smooth, noise=noise, jit_u=jit_u,
                                    rand=rand)
+        self._add_overflow(out)
         per_ray = ((out["image"] - gt) ** 2).mean(-1)
         loss = per_ray.mean()
         loss = loss + ((out["direct_rgb"] - gt) ** 2).mean()
@@ -277,9 +281,9 @@ class PaletteTrainer(Trainer):
 
     # ------------------------------------------------------------------ eval / test
 
-    def _render_chunk(self, params, rays_o, rays_d, bg):
+    def _render_chunk(self, params, bitfield, rays_o, rays_d, bg):
         return render_palette_eval(
-            params, self.palette_spec, self.grid_state.bitfield, rays_o, rays_d,
+            params, self.palette_spec, bitfield, rays_o, rays_d,
             self.eval_settings, bg, edit=self.edit, stylizer=self.stylizer,
             offsets_weight=self.offsets_weight, view_dep_weight=self.view_dep_weight)
 

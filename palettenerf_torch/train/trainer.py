@@ -24,6 +24,12 @@ Port of the ``-O`` path of ``palettenerf_tpu/train/trainer.py``:
   ``test_gui`` frames at a downscale, ``set_render_option`` for the GUI sliders,
   ``save_view``, and ``save_mesh`` (density lattice on the device, marching tetrahedra
   on the host).
+- The opt-in render options (:111-136), all off by default: ``--train_compact_frac`` /
+  ``--eval_compact_frac`` (the network runs on the march-valid samples only, in a static
+  budget; the eval renders' dropped samples are summed over a frame and logged once),
+  ``--eval_fine_grid`` (a finer bitfield baked lazily from the EMA field at the first
+  eval render, ``_eval_bitfield``, dropped whenever the weights or the grid change) and
+  ``--march_groups`` (the hierarchical march; -1 resolves to 0, :656-670).
 
 All randomness comes from one ``torch.Generator`` on the trainer's device, seeded
 with ``opt.seed`` (the host samplers of ``iter_epoch`` use the dataset's own NumPy
@@ -48,10 +54,11 @@ from ..data.rays import gen_rays, gen_rays_torch
 from ..models.mlp import param_leaves
 from ..models.nerf import NeRFSpec, encode_rand_for, init_nerf, nerf_density
 from ..ops.hashgrid_fast import EncodeRand
-from ..ops.occupancy import (GridState, init_grid_state, mark_untrained_grid,
-                             update_density_grid)
+from ..ops.occupancy import (GridState, bake_fine_bitfield, init_grid_state,
+                             mark_untrained_grid, unpackbits, update_density_grid)
 from ..ops.scatter import check_refused
-from ..render.nerf_renderer import RenderSettings, render_nerf_eval, render_nerf_train
+from ..render.nerf_renderer import (RenderSettings, render_nerf_eval, render_nerf_train,
+                                    train_rows)
 from . import checkpoint as ckpt_lib
 from .metrics import PSNRMeter
 
@@ -61,9 +68,6 @@ _DENSITY_CHUNK = 1 << 18  # grid points per density query during a refresh
 def check_ported(opt: Config) -> None:
     """Raise for options whose code paths are not ported yet."""
     unported = {
-        "march_groups": opt.march_groups > 0, "eval_fine_grid": opt.eval_fine_grid,
-        "eval_compact_frac": opt.eval_compact_frac,
-        "train_compact_frac": opt.train_compact_frac,
         "bg_radius > 0": opt.bg_radius > 0, "patch_size > 1": opt.patch_size > 1,
         "color_space=linear": opt.color_space == "linear",
         "n_devices > 1": opt.n_devices > 1, "rand_pose": opt.rand_pose >= 0,
@@ -138,7 +142,8 @@ class Trainer:
             bound=spec.bound, cascade=cascade, grid_size=opt.grid_size,
             dt_gamma=opt.dt_gamma, max_steps=opt.max_steps,
             num_samples=opt.train_samples_per_ray, t_thresh=opt.t_thresh_train,
-            min_near=opt.min_near,
+            min_near=opt.min_near, march_groups=self._march_groups(),
+            compact_frac=opt.train_compact_frac,
         )
         s_inf = opt.infer_samples_per_ray
         self.eval_settings = RenderSettings(
@@ -146,7 +151,12 @@ class Trainer:
             dt_gamma=opt.dt_gamma, max_steps=opt.max_steps,
             num_samples=s_inf, t_thresh=opt.t_thresh_infer, min_near=opt.min_near,
             compaction_rounds=self._compaction_rounds(s_inf),
+            march_groups=self._march_groups(),
+            compact_frac=opt.eval_compact_frac, fine_grid_size=int(opt.eval_fine_grid),
         )
+        self._fine_bitfield = None   # the lazily baked --eval_fine_grid bitfield
+        self._overflow = None        # train renders' dropped samples, summed on the device
+        self.last_compact_overflow = None  # the last eval frame's, with --eval_compact_frac
         self._dev_src = None
 
         n_params = sum(p.numel() for p in param_leaves(self.params))
@@ -180,6 +190,14 @@ class Trainer:
         self.optimizer = torch.optim.Adam(self._trainable(self.params), lr=self.opt.lr,
                                           betas=(0.9, 0.99), eps=1e-15)
         self.opt_step = 0  # optimizer updates made (the lr schedule's count)
+        self._fine_bitfield = None  # the weights changed: rebake on the next eval
+
+    def _march_groups(self) -> int:
+        """Group slots of the hierarchical march: ``--march_groups``, where -1 (the
+        default) resolves to 0 for every sample count. Strictly opt-in, as in JAX
+        (:656-670): when more groups pass the coarse test than there are slots, samples
+        the flat march keeps are dropped, and a default-on run diverged there."""
+        return max(0, self.opt.march_groups)
 
     def _compaction_rounds(self, s_inf: int) -> tuple:
         """All rays march s/4 samples, the top 1/4 by transmittance s/4 more, the
@@ -201,13 +219,21 @@ class Trainer:
     # ------------------------------------------------------------------ training
 
     def _encode_rand(self, n_rays: int, enc_u=None, enc_lvls=None) -> Optional[EncodeRand]:
-        """The step's encode draws: ``enc_u`` [n_rays * S, L] / ``enc_lvls`` [K] as given,
+        """The step's encode draws: ``enc_u`` [train_rows, L] / ``enc_lvls`` [K] as given,
         or (both None) drawn from the generator, ``u`` then ``lvls``; None when the spec's
-        profile uses none."""
+        profile uses none. ``train_rows`` is n_rays * S, or the compact budget with
+        ``--train_compact_frac`` (JAX :178-186)."""
         if enc_u is not None or enc_lvls is not None:
             return EncodeRand(u=enc_u, lvls=enc_lvls)
         return encode_rand_for(self.generator, self.spec,
-                               n_rays * self.train_settings.num_samples)
+                               train_rows(self.train_settings, n_rays))
+
+    def _add_overflow(self, out: dict) -> None:
+        """Sum the train render's ``compact_overflow`` on the device (read once per epoch
+        with the losses)."""
+        if "compact_overflow" in out:
+            self._overflow = out["compact_overflow"] + (
+                0 if self._overflow is None else self._overflow)
 
     def train_step(self, rays_o, rays_d, images, bg=None, noise=None, enc_u=None,
                    enc_lvls=None):
@@ -233,6 +259,7 @@ class Trainer:
         out = render_nerf_train(self.params, self.spec, self.grid_state.bitfield,
                                 rays_o, rays_d, self.train_settings,
                                 bg_color=bg, rays_gt=gt, noise=noise, rand=rand)
+        self._add_overflow(out)
         per_ray = ((out["image"] - gt) ** 2).mean(-1) + out["rgb_norm"] * opt.lambda_sparse
         loss = per_ray.mean()
 
@@ -286,6 +313,7 @@ class Trainer:
         for _ in range(max_epochs - self.epoch):
             self.epoch += 1
             self.train_one_epoch(train_ds)
+            self._fine_bitfield = None  # the weights and the grid changed
             self.save_checkpoint(best=False)
             if valid_ds is not None and self.epoch % self.eval_interval == 0:
                 self.evaluate_one_epoch(valid_ds)
@@ -302,6 +330,7 @@ class Trainer:
         """One step per training image, in a random order: device-sampled pixels on
         device-resident images, or the host-sampled epoch (``host_sampled``)."""
         t0 = time.time()
+        self._overflow = None
         if self.host_sampled():
             losses = self._host_epoch(train_ds)
         else:
@@ -310,8 +339,13 @@ class Trainer:
         check_refused()  # the host has just waited for the device: rows the kernel refused
         self.stats["loss"].append(avg)
         self.stats.setdefault("epoch_seconds", []).append(time.time() - t0)
+        note = self._epoch_note()
+        if self._overflow is not None:
+            dropped = int(self._overflow)
+            self.stats.setdefault("compact_overflow", []).append(dropped)
+            note += f", compact overflow {dropped}"
         self.log(f"[epoch {self.epoch}] loss={avg:.6f} ({len(losses)} steps, "
-                 f"{time.time() - t0:.1f}s, step={self.global_step}{self._epoch_note()})")
+                 f"{time.time() - t0:.1f}s, step={self.global_step}{note})")
         return avg
 
     def _epoch_note(self) -> str:
@@ -363,20 +397,51 @@ class Trainer:
 
     # ------------------------------------------------------------------ eval
 
+    def _eval_bitfield(self):
+        """The bitfield of eval renders: the train grid's, or with ``--eval_fine_grid``
+        the pair (train, fine), the fine one baked from the EMA field at first use after
+        each change of the weights or the grid (JAX :405-427)."""
+        fine = self.eval_settings.fine_grid_size
+        if fine <= 0:
+            return self.grid_state.bitfield
+        if self._fine_bitfield is None:
+            params = self.eval_params()
+            t0 = time.time()
+            self._fine_bitfield = bake_fine_bitfield(
+                self.grid_state, lambda p: self._density(params, p), bound=self.spec.bound,
+                density_thresh=self.opt.density_thresh, fine_size=fine,
+                grid_size=self.opt.grid_size)
+            occ = int(unpackbits(self._fine_bitfield).sum())
+            self.fine_bake_stats = {"seconds": time.time() - t0, "occupied": occ}
+            self.log(f"[INFO] baked {fine}^3 eval bitfield in {time.time() - t0:.1f}s "
+                     f"({occ} occupied cells)")
+        return (self.grid_state.bitfield, self._fine_bitfield)
+
     def render_image(self, rays_o, rays_d, bg_color=None, chunk: int = 16384):
-        """Full-frame eval render in ray chunks -> dict of numpy arrays."""
+        """Full-frame eval render in ray chunks -> dict of numpy arrays. With
+        ``--eval_compact_frac`` the samples the budget dropped are summed over the frame
+        on the device and read once, after every chunk; a frame that dropped any is
+        logged (JAX :518-524), and the count is kept in ``last_compact_overflow``."""
         rays_o = torch.as_tensor(rays_o, dtype=torch.float32)
         rays_d = torch.as_tensor(rays_d, dtype=torch.float32)
         bg = None if bg_color is None else torch.as_tensor(
             bg_color, dtype=torch.float32, device=self.device)
         params = self.eval_params()
-        outs = [self._render_chunk(params, rays_o[start:start + chunk].to(self.device),
+        bitfield = self._eval_bitfield()
+        outs = [self._render_chunk(params, bitfield, rays_o[start:start + chunk].to(self.device),
                                    rays_d[start:start + chunk].to(self.device), bg)
                 for start in range(0, rays_o.shape[0], chunk)]
-        return {k: torch.cat([o[k] for o in outs]).cpu().numpy() for k in outs[0]}
+        dropped = [o.pop("compact_overflow") for o in outs if "compact_overflow" in o]
+        frame = {k: torch.cat([o[k] for o in outs]).cpu().numpy() for k in outs[0]}
+        if dropped:
+            self.last_compact_overflow = int(torch.stack(dropped).sum())
+            if self.last_compact_overflow > 0:
+                self.log(f"[WARN] compact budget overflow: {self.last_compact_overflow} "
+                         "valid samples dropped this frame — raise eval_compact_frac")
+        return frame
 
-    def _render_chunk(self, params, rays_o, rays_d, bg):
-        return render_nerf_eval(params, self.spec, self.grid_state.bitfield, rays_o, rays_d,
+    def _render_chunk(self, params, bitfield, rays_o, rays_d, bg):
+        return render_nerf_eval(params, self.spec, bitfield, rays_o, rays_d,
                                 self.eval_settings, bg)
 
     def eval_step_full(self, data, bg_color=None):
@@ -474,11 +539,12 @@ class Trainer:
 
     def set_render_option(self, **kw):
         """Live render-settings update from the GUI sliders (``dt_gamma``, ``num_samples``,
-        ...): both settings take the values; the eval compaction schedule follows a new
-        ``num_samples``. The hierarchical march is not ported: ``march_groups > 0`` raises."""
-        if kw.pop("march_groups", 0) > 0:
-            raise NotImplementedError("not ported to palettenerf_torch yet: march_groups")
+        ...): both settings take the values (JAX :684-700); a new ``num_samples`` without
+        ``march_groups`` re-provisions the group slots of both, and the eval compaction
+        schedule follows it."""
         tkw = {k: v for k, v in kw.items() if k != "compaction_rounds"}
+        if "num_samples" in kw and "march_groups" not in kw:
+            tkw["march_groups"] = kw["march_groups"] = self._march_groups()
         self.train_settings = dataclasses.replace(self.train_settings, **tkw)
         if "num_samples" in kw and "compaction_rounds" not in kw:
             kw["compaction_rounds"] = self._compaction_rounds(kw["num_samples"])

@@ -13,8 +13,9 @@ import torch
 from palettenerf_tpu.models import nerf as jnerf
 from palettenerf_torch.models import nerf as tnerf
 from palettenerf_torch.train import checkpoint as tckpt
+from torch_support import CPU_THREADS
 
-torch.set_num_threads(2)
+torch.set_num_threads(CPU_THREADS)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEPLOY = os.path.join(REPO, "deploy", "proc_toys", "palette_ep0080.ckpt")
 

@@ -262,6 +262,76 @@ def test_train_step_on_card_matches_cpu(cuda_device, tmp_path):
         assert float((a - b).abs().max()) <= 1e-2 * float(a.abs().max())
 
 
+def test_scatter_kernel_on_a_compacted_train_stream(cuda_device, tmp_path):
+    """``--train_compact_frac 0.25``: the train step on the card against the CPU (loss,
+    overflow, every gradient) with one B1 launch; then B1 against its plain version on the
+    stream the compacted encode gives it: the valid samples packed first, the budget's
+    unused slots at the tail with zero updates."""
+    from palettenerf_torch.render.nerf_renderer import forward_compact, train_rows
+
+    cfg = Config(O=True, fp16=True, bound=1.0, grid_size=32, num_rays=512, max_steps=256,
+                 train_samples_per_ray=32, log2_hashmap_size=14, grid_levels=8, iters=100,
+                 train_compact_frac=0.25)
+    spec = NeRFSpec.build(bound=1.0, fp16=True, log2_hashmap_size=14, grid_levels=8)
+    gen = torch.Generator().manual_seed(3)
+    params = init_nerf(spec, gen)
+    params["encoder"].uniform_(-1, 1, generator=gen)
+    n = cfg.num_rays
+    o = torch.randn((n, 3), generator=gen)
+    o = o / o.norm(dim=-1, keepdim=True) * 2.0
+    d = -o + 0.5 * torch.randn((n, 3), generator=gen)
+    d = d / d.norm(dim=-1, keepdim=True)
+    img, bg, noise = (torch.rand((n, 4), generator=gen), torch.rand((n, 3), generator=gen),
+                      torch.rand((n,), generator=gen))
+    c = (torch.arange(32) + 0.5) / 32 * 2 - 1
+    ball = (torch.stack(torch.meshgrid(c, c, c, indexing="ij"), -1) ** 2).sum(-1) < 0.4
+    bits = (ball.reshape(-1, 8).int() << torch.arange(8)).sum(-1).to(torch.uint8)
+    out = []
+    for dev in ("cpu", cuda_device):
+        tr = Trainer("t", cfg, spec, params={k: (v.clone() if torch.is_tensor(v)
+                                                 else [w.clone() for w in v])
+                                             for k, v in params.items()},
+                     workspace=str(tmp_path), use_checkpoint="scratch", mute=True, device=dev)
+        tr.grid_state = tr.grid_state._replace(bitfield=bits.to(dev))
+        before = scatter.scatter_add.launches
+        loss, _ = tr.train_step(o.to(tr.device), d.to(tr.device), img.to(tr.device),
+                                bg=bg.to(tr.device), noise=noise.to(tr.device))
+        launched = scatter.scatter_add.launches - before
+        out.append((float(loss), [p.grad.cpu() for p in param_list(tr.params)], launched,
+                    int(tr._overflow)))
+    (loss_c, g_c, n_c, over_c), (loss_g, g_g, n_g, over_g) = out
+    assert (n_c, n_g) == (0, 1) and over_c == over_g > 0
+    assert loss_g == pytest.approx(loss_c, rel=1e-5)
+    for a, b in zip(g_c, g_g):
+        assert float((a - b).abs().max()) <= 1e-2 * float(a.abs().max())
+
+    # B1 on the compacted stream of the same batch, marched through the same grid
+    from palettenerf_torch.ops.rays import near_far_from_aabb
+    from palettenerf_torch.render.nerf_renderer import _aabb, _march
+
+    st = tr.train_settings
+    ro, rd = o.to(cuda_device), d.to(cuda_device)
+    nears, fars = near_far_from_aabb(ro, rd, _aabb(st, cuda_device), st.min_near)
+    m = _march(ro, rd, nears, fars, bits.to(cuda_device), st, st.num_samples,
+               noise.to(cuda_device))
+    budget = train_rows(st, n)
+    x01 = (m.xyzs.reshape(-1, 3) + 1.0) / 2.0
+    packed = []
+    forward_compact(lambda x: packed.append(x) or (x[:, 0],), m.mask.reshape(-1), budget, x01)
+    idx = hashgrid_fast.corner_indices(spec.grid, packed[0])[0].reshape(-1).contiguous()
+    held = min(int(m.mask.sum()), budget)
+    vals = torch.randn((idx.numel(), 2), device=cuda_device)
+    vals[held * 64:] = 0.0
+    vals = vals.to(torch.bfloat16)
+    got = scatter.scatter_add(idx, vals, spec.grid.total_params, 64)
+    ref = scatter.scatter_add_reference(idx, vals, spec.grid.total_params)
+    scale = scatter.scatter_add_reference(idx, vals.abs(), spec.grid.total_params)
+    torch.cuda.synchronize()
+    scatter.check_refused()
+    assert held == budget and idx.numel() == budget * 64
+    assert _within(got, ref, scale, 1e-5)
+
+
 PAL_KW = dict(bound=1.0, log2_hashmap_size=14, grid_levels=8)
 
 

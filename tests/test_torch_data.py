@@ -18,8 +18,9 @@ from palettenerf_torch.data import png
 from palettenerf_torch.data.provider import NeRFDataset as TDataset, area_downscale
 from palettenerf_torch.data.rays import gen_rays, gen_rays_torch
 from synthetic import make_sphere_dataset
+from torch_support import CPU_THREADS
 
-torch.set_num_threads(2)
+torch.set_num_threads(CPU_THREADS)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -40,8 +40,9 @@ from palettenerf_torch.models import palette as tpal
 from palettenerf_torch.train import checkpoint as tckpt
 from palettenerf_torch.utils.mcubes import read_ply
 from synthetic import make_sphere_dataset
+from torch_support import CPU_THREADS
 
-torch.set_num_threads(2)
+torch.set_num_threads(CPU_THREADS)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEPLOY = os.path.join(REPO, "deploy", "proc_toys")
 

@@ -63,8 +63,9 @@ from palettenerf_torch.utils import mcubes as tmcubes
 from palettenerf_torch.utils.mcubes import read_ply
 from synthetic import make_sphere_dataset
 from tests_stub_support import make_stub_dpg
+from torch_support import CPU_THREADS
 
-torch.set_num_threads(2)
+torch.set_num_threads(CPU_THREADS)
 ATOL = 2e-5
 FRAME_ATOL = {"xyz": 1e-4, "unscaled_basis_rgb": 5e-5}
 CFG_KW = dict(O=True, fp16=True, bound=1.0, scale=0.5, dt_gamma=0.0, min_near=0.05,
@@ -484,8 +485,17 @@ def test_set_render_option_rederives_compaction(scene, tmp_path, samples):
         st = getattr(ttr, kind)
         assert (st.num_samples, st.dt_gamma) == (samples, 0.004), kind
     assert ttr.train_settings.compaction_rounds == ()
-    with pytest.raises(NotImplementedError, match="march_groups"):
-        ttr.set_render_option(march_groups=4)
+    # the hierarchical march's group slots: set on both settings, and re-provisioned from
+    # the trainer's option when only the sample count moves (trainer.py:684-700)
+    for tr in (jtr, ttr):
+        tr.set_render_option(march_groups=4)
+    for kind in ("train_settings", "eval_settings"):
+        assert getattr(ttr, kind).march_groups == getattr(jtr, kind).march_groups == 4, kind
+    for tr in (jtr, ttr):
+        tr.set_render_option(num_samples=samples)
+    for kind in ("train_settings", "eval_settings"):
+        assert getattr(ttr, kind).march_groups == getattr(jtr, kind).march_groups \
+            == ttr._march_groups() == 0, kind
 
 
 def test_save_view_writes_the_test_gui_frame(pair):

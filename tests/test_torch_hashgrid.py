@@ -15,8 +15,9 @@ from palettenerf_tpu.ops import hashgrid as jhg
 from palettenerf_tpu.ops import hashgrid_fast as jfast
 from palettenerf_torch.ops import hashgrid as thg
 from palettenerf_torch.ops import hashgrid_fast as tfast
+from torch_support import CPU_THREADS
 
-torch.set_num_threads(2)
+torch.set_num_threads(CPU_THREADS)
 
 
 def _specs(**kw):

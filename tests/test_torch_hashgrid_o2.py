@@ -16,8 +16,9 @@ from palettenerf_tpu.ops import hashgrid as jhg
 from palettenerf_tpu.ops import hashgrid_fast as jfast
 from palettenerf_torch.ops import hashgrid as thg
 from palettenerf_torch.ops import hashgrid_fast as tfast
+from torch_support import CPU_THREADS
 
-torch.set_num_threads(2)
+torch.set_num_threads(CPU_THREADS)
 GRIDTYPES = ["hash", "hash_xadd"]
 # small specs whose finer levels hash: 4 levels, 2^10-2^13 rows
 SMALL = dict(num_levels=4, desired_resolution=256, log2_hashmap_size=11)

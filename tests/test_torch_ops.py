@@ -20,8 +20,9 @@ from palettenerf_torch.ops import march as tmarch
 from palettenerf_torch.ops import occupancy as tocc
 from palettenerf_torch.ops import rays as trays
 from palettenerf_torch.ops import sh as tsh
+from torch_support import CPU_THREADS
 
-torch.set_num_threads(2)
+torch.set_num_threads(CPU_THREADS)
 def T(a):
     return torch.from_numpy(np.array(a))
 

@@ -41,8 +41,9 @@ from palettenerf_torch.train import checkpoint as tckpt
 from palettenerf_torch.train import metrics as tmetrics
 from palettenerf_torch.train.palette_trainer import PaletteTrainer as TPaletteTrainer
 from palettenerf_torch.train.trainer import Trainer as TTrainer
+from torch_support import CPU_THREADS
 
-torch.set_num_threads(2)
+torch.set_num_threads(CPU_THREADS)
 ATOL = 2e-5
 H = 16
 SPEC_KW = dict(bound=1.0, num_basis=4, log2_hashmap_size=12, grid_levels=4, hidden_dim=16,

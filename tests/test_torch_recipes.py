@@ -45,8 +45,9 @@ from palettenerf_torch.train.palette_trainer import patch_smooth_term
 from synthetic import make_sphere_dataset
 from test_torch_palette_train import (BC, CFG_KW, _close, _close_params, _model, _scene,
                                       _settings, _tree_pairs)
+from torch_support import CPU_THREADS
 
-torch.set_num_threads(2)
+torch.set_num_threads(CPU_THREADS)
 O2 = dict(fast_grad=True, stochastic_trilerp=True, grad_levels=2)
 NERF_KW = dict(bound=1.0, log2_hashmap_size=12, grid_levels=4, hidden_dim=16,
                hidden_dim_color=16)
@@ -320,16 +321,39 @@ def test_check_ported_keeps_raising_for_the_rest():
     base = TConfig()
     ttrainer.check_ported(base.replace(O2=True, fast_grad=True, stochastic_trilerp=True,
                                        grad_levels=8, gridtype="hash_xadd", random_size=8,
-                                       error_map=True))
-    for kw, name in ((dict(march_groups=2), "march_groups"),
-                     (dict(eval_fine_grid=256), "eval_fine_grid"),
-                     (dict(eval_compact_frac=0.3), "eval_compact_frac"),
-                     (dict(train_compact_frac=0.3), "train_compact_frac"),
-                     (dict(bg_radius=1.0), "bg_radius"), (dict(patch_size=2), "patch_size"),
+                                       error_map=True, march_groups=2, eval_fine_grid=256,
+                                       eval_compact_frac=0.3, train_compact_frac=0.3))
+    for kw, name in ((dict(bg_radius=1.0), "bg_radius"), (dict(patch_size=2), "patch_size"),
                      (dict(color_space="linear"), "color_space"),
                      (dict(n_devices=2), "n_devices"), (dict(rand_pose=0), "rand_pose")):
         with pytest.raises(NotImplementedError, match=name):
             ttrainer.check_ported(base.replace(**kw))
+
+
+@pytest.mark.parametrize("march_groups", [-1, 0, 3])
+def test_render_options_reach_the_settings_as_in_jax(tmp_path, march_groups):
+    """``--march_groups`` (-1 resolves to 0), ``--train_compact_frac``,
+    ``--eval_compact_frac`` and ``--eval_fine_grid`` reach ``train_settings`` /
+    ``eval_settings`` as in the JAX Trainer (trainer.py:111-136)."""
+    kw = dict(bound=1.0, grid_size=16, seed=0, log2_hashmap_size=10, grid_levels=4,
+              max_steps=64, train_samples_per_ray=16, infer_samples_per_ray=32,
+              march_groups=march_groups, train_compact_frac=0.25, eval_compact_frac=0.125,
+              eval_fine_grid=32)
+    spec = dict(bound=1.0, log2_hashmap_size=10, grid_levels=4, hidden_dim=16,
+                hidden_dim_color=16)
+    jtr = JTrainer("ngp", JConfig(**kw), jnerf.NeRFSpec.build(**spec),
+                   workspace=str(tmp_path / "jax"), use_checkpoint="scratch", mute=True)
+    ttr = ttrainer.Trainer("ngp", TConfig(**kw), tnerf.NeRFSpec.build(**spec),
+                           workspace=str(tmp_path / "torch"), use_checkpoint="scratch",
+                           mute=True, device="cpu")
+    for kind in ("train_settings", "eval_settings"):
+        j, t = getattr(jtr, kind), getattr(ttr, kind)
+        for f in ("march_groups", "compact_frac", "fine_grid_size", "compaction_rounds",
+                  "num_samples"):
+            assert getattr(t, f) == getattr(j, f), (kind, f)
+    assert ttr.train_settings.march_groups == max(0, march_groups)
+    assert (ttr.train_settings.compact_frac, ttr.eval_settings.compact_frac) == (0.25, 0.125)
+    assert (ttr.train_settings.fine_grid_size, ttr.eval_settings.fine_grid_size) == (0, 32)
 
 
 def _nerf_argv(scene, *extra):

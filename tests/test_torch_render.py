@@ -15,8 +15,9 @@ from palettenerf_tpu.render import nerf_renderer as jrender
 from palettenerf_torch.models import nerf as tnerf
 from palettenerf_torch.render import nerf_renderer as trender
 from palettenerf_torch.train.checkpoint import params_from_jax
+from torch_support import CPU_THREADS
 
-torch.set_num_threads(2)
+torch.set_num_threads(CPU_THREADS)
 ATOL = 1e-5
 SPEC_KW = dict(bound=1.0, log2_hashmap_size=12, grid_levels=4, hidden_dim=16,
                hidden_dim_color=16)

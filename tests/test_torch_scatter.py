@@ -15,8 +15,9 @@ from palettenerf_torch.ops import hashgrid_fast
 from palettenerf_torch.ops import scatter as port_scatter
 from palettenerf_torch.ops._cuda import RefusedCounter
 from palettenerf_torch.ops.hashgrid import HashGridSpec
+from torch_support import CPU_THREADS
 
-torch.set_num_threads(2)
+torch.set_num_threads(CPU_THREADS)
 ATOL = 1e-5
 
 

@@ -33,8 +33,9 @@ from palettenerf_torch.render import palette_renderer as tpr
 from palettenerf_torch.render import sweep as tsweep
 from palettenerf_torch.train import checkpoint as tckpt
 from palettenerf_torch.utils import color as tcolor
+from torch_support import CPU_THREADS
 
-torch.set_num_threads(2)
+torch.set_num_threads(CPU_THREADS)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEPLOY = os.path.join(REPO, "deploy", "proc_toys", "palette_ep0080.ckpt")
 RTOL, ATOL = 1e-4, 1e-5

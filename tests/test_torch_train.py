@@ -24,8 +24,9 @@ from palettenerf_torch.train.checkpoint import params_from_jax
 from palettenerf_torch.train.trainer import Trainer as TTrainer
 from palettenerf_torch.utils.mcubes import read_ply
 from synthetic import make_sphere_dataset
+from torch_support import CPU_THREADS
 
-torch.set_num_threads(2)
+torch.set_num_threads(CPU_THREADS)
 SPEC_KW = dict(bound=1.0, log2_hashmap_size=12, grid_levels=4, hidden_dim=16,
                hidden_dim_color=16)
 CFG_KW = dict(O=True, fp16=True, bound=1.0, grid_size=16, num_rays=192, max_steps=128,
@@ -146,8 +147,28 @@ def test_main_nerf_cli_on_cpu(sphere_scene, tmp_path, monkeypatch):
                             f"ngp_{tr.epoch}.ply")
     assert np.abs(verts).max(initial=0.0) <= 1.0 and faces.max(initial=-1) < len(verts)
     # options of paths that are not ported yet still raise (-O2: test_torch_recipes.py)
-    with pytest.raises(NotImplementedError, match="march_groups"):
-        tmain.main(argv + ["--march_groups", "2"], device="cpu")
+    with pytest.raises(NotImplementedError, match="patch_size"):
+        tmain.main(argv + ["--patch_size", "2"], device="cpu")
+
+
+def test_main_nerf_cli_with_hierarchical_march_and_eval_compaction(sphere_scene, tmp_path,
+                                                                    monkeypatch):
+    """The opt-in render flags reach the trainer: it trains and evaluates with the
+    hierarchical march and the compacted eval renders."""
+    monkeypatch.chdir(tmp_path)
+    argv = [sphere_scene, "--bound", "1", "--scale", "0.5", "--dt_gamma", "0",
+            "--min_near", "0.05", "--num_rays", "256", "--iters", "16", "--max_steps", "64",
+            "--train_samples_per_ray", "16", "--infer_samples_per_ray", "32",
+            "--log2_hashmap_size", "10", "--grid_levels", "4", "--eval_interval", "1",
+            "--march_groups", "2", "--eval_compact_frac", "0.5"]
+    tr = tmain.main(argv, device="cpu", mesh_resolution=16)
+    assert tr.global_step == 16 and np.isfinite(tr.stats["loss"]).all()
+    assert tr.train_settings.march_groups == tr.eval_settings.march_groups == 2
+    assert tr.eval_settings.compact_frac == 0.5 and tr.train_settings.compact_frac == 0.0
+    assert len(tr.stats["results"]) >= tr.epoch and tr.last_compact_overflow is not None
+    # a frame whose budget dropped samples says so in the log, once per frame
+    warned = "compact budget overflow" in open(tr.log_path).read()
+    assert warned == (tr.last_compact_overflow > 0)
 
 
 def test_entry_points_refuse_missing_cuda():
