@@ -82,6 +82,22 @@ the training views (``--extract_palette --extract_via_sweep``), then 300 palette
     ``EditingSession`` frame at the ``--gui`` defaults with ``--eval_fine_grid 256
     --eval_compact_frac 0.125`` at test view 0 (``jump_to_pose`` to test pose 0).
 
+11c. model options reference: on small sizes, card against CPU with the same parameters
+    and draws: ``sph_from_ray``, the background grid's encoding (full width) and its f32
+    table gradient, ``rlpips_distance`` and its input gradient, one ``-O`` stage-1 step
+    with the background net and ``--patch_size 4 --lambda_lpips 0.1`` (loss and every
+    gradient), one palette eval render with the background net in linear colour space.
+11d. bg + patch main path: ``main_nerf.main`` with ``-O --bg_radius 32 --patch_size 16
+    --lambda_lpips 0.1`` on proc_toys at full width, 300 steps from scratch (workspace
+    ``results/chip_smoke_bg/version_1``) with the CLI's test tail (the JAX meter list) and
+    its mesh at 128^3; validation view 0 against the training target; B1 held and timed
+    on the stream of one patch batch.
+11e. bg + linear palette main path: ``main_palette`` with ``--bg_radius 32 --color_space
+    linear`` on that workspace: extraction via the sweep (``main_palette.main``), then the
+    CLI's training run over the three schedule phases (``load_train_trainer`` + ``train``,
+    300 steps; its test tail is cut for time); the bg net's warm start (step 0 and the
+    log's tensor count), the linear palette, validation view 0 in linear space.
+
 12. -O2 palette main path: ``main_palette.main`` with ``-O2 --random_size 8
     --lambda_patchsmooth 0.004`` on the extraction of phase 7 (host-sampled epochs, one
     per schedule phase, workspace ``results_palette/chip_smoke/version_2``) with the
@@ -203,6 +219,37 @@ EDIT_COMPACT_PSNR_FLOOR = 21.0  # edit frame, fine grid + budget 1/8 vs plain: f
 COMPACT_TS_RTOL = 1e-6     # card vs CPU march t with exp in the step rule (a few ulp)
 COMPACT_CARD_ATOL = 2e-5   # card vs CPU compacted train render: f32 sums in another order
 COMPACT_GRAD_RTOL = 1e-4   # of each gradient tensor's largest entry (f32 atomics, sums)
+# the model options of the background net, the patch loss and the linear colour space:
+# stage 1 with torch-ngp's unbounded-scene background radius (any radius beyond the
+# cameras' 1.88 units after --scale 0.8) and the rLPIPS loss on 16 patches of 16x16
+BG_RADIUS = 32.0
+BG_PATCH_WS = os.path.join("results", "chip_smoke_bg", "version_1")
+BG_PATCH_ARGS = [SCENE, "-O", "--bound", "1", "--scale", "0.8", "--density_thresh", "10",
+                 "--bg_radius", str(BG_RADIUS), "--patch_size", "16", "--lambda_lpips", "0.1",
+                 "--iters", "300", "--seed", "0", "--workspace", "chip_smoke_bg",
+                 "--version_id", "1"]
+BG_MESH_RESOLUTION = 128   # the CLI's mesh tail, at 128^3 instead of 256^3 (host time)
+# then the palette stages on that workspace in linear colour space (workspaces mirrored
+# under results_palette/chip_smoke_bg/)
+BG_LINEAR_ARGS = [SCENE, BG_PATCH_WS, "-O", "--bound", "1", "--scale", "0.8",
+                  "--density_thresh", "10", "--bg_radius", str(BG_RADIUS), "--color_space",
+                  "linear", "--use_normalized_palette", "--seed", "0"]
+BG_LINEAR_TRAIN_ARGS = BG_LINEAR_ARGS + PALETTE_TRAIN_ARGS[len(PALETTE_ARGS):]
+OPTIONS_GRAD_RTOL = 1e-4   # card vs CPU gradients of the f32 tensors, of each tensor's largest
+#                            entry: f32 sums and atomics in another order
+# card vs CPU gradients of the background net (encoder_bg, bg_net), |a - b| / |a| over the
+# tensor: sph_from_ray differs by ulps between the devices (atan2, sqrt: 2.4e-7), which at
+# the finest background level (2048 cells across [0, 1]) moves a sample by 2.5e-4 of a cell;
+# on the lively table of the reference that moves the bg gradients by 8.4e-3 (L2) and
+# 3.4e-2 (largest entry) (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6)
+BG_GRAD_L2_RTOL = 3e-2
+OPTIONS_RENDER_ATOL = 1e-4  # card vs CPU palette eval render with the bg net: f32 sums
+# val view 0 against the training target (the straight RGB; linear for the palette), set
+# from the card runs with ~2 dB margin: 12.609 dB after 300 bg + patch steps, 14.390 dB after
+# 300 + 300 steps in linear space (NVIDIA H100 80GB HBM3, 700 W). Low: with the bg net the
+# field fogs up early on this scene (PERF.md §6)
+BG_PATCH_PSNR_FLOOR = 10.5
+BG_LINEAR_PSNR_FLOOR = 12.0
 
 
 def log(msg: str) -> None:
@@ -576,18 +623,21 @@ def phase_main_path(torch, dev):
     return launches, phase_path_stream(torch, trainer, train_ds), train_ds, trainer, val_psnr
 
 
-def march_train_batch(torch, trainer, train_ds, seed):
+def march_train_batch(torch, trainer, train_ds, seed, inds=None):
     """One train batch as the train step marches it: 4096 random pixels of training view
-    0 through the trainer's occupancy grid, jittered, 64 sample slots per ray. Returns
-    (the march, the sample positions in [0, 1]^3 [N*S, 3], the generator drawn from)."""
+    0 (or its pixels ``inds``) through the trainer's occupancy grid, jittered, 64 sample
+    slots per ray. Returns (the march, the sample positions in [0, 1]^3 [N*S, 3], the
+    generator drawn from)."""
     from palettenerf_torch.data.rays import gen_rays_torch
     from palettenerf_torch.ops.rays import near_far_from_aabb
     from palettenerf_torch.render.nerf_renderer import _aabb, _march
 
     dev, st = trainer.device, trainer.train_settings
     gen = torch.Generator(device=dev).manual_seed(seed)
-    n = trainer.opt.num_rays
-    inds = torch.randint(0, train_ds.H * train_ds.W, (n,), generator=gen, device=dev)
+    if inds is None:
+        inds = torch.randint(0, train_ds.H * train_ds.W, (trainer.opt.num_rays,),
+                             generator=gen, device=dev)
+    n = inds.numel()
     rays_o, rays_d = gen_rays_torch(torch.as_tensor(train_ds.poses[0]).to(dev),
                                     [float(v) for v in train_ds.intrinsics], train_ds.H,
                                     train_ds.W, inds)
@@ -1892,6 +1942,389 @@ def phase_edit(torch, dev, stage1):
     return launches
 
 
+def lpips_missing() -> bool:
+    """Whether the pretrained ``lpips`` package is absent: LPIPS must then read NaN."""
+    import importlib.util
+
+    return importlib.util.find_spec("lpips") is None
+
+
+def phase_options_reference(torch, dev):
+    """The model options of the background net, the patch loss and the linear colour
+    space on small sizes, card against CPU with the same parameters and draws:
+    ``sph_from_ray`` (axis-parallel rays included); the background grid's encoding at full
+    width (4 levels, 2^19 rows: three dense, one hashed) and its f32 table gradient;
+    ``rlpips_distance`` and its input gradient; one ``-O`` stage-1 step with the background
+    net and ``--patch_size 4 --lambda_lpips 0.1`` (loss and every gradient, one B1 launch on
+    the card); one palette eval render with the background net in linear colour space.
+    Returns the largest difference of each check."""
+    from palettenerf_torch.config import Config
+    from palettenerf_torch.models.nerf import (NeRFSpec, background_grid, init_background,
+                                               init_nerf, param_list)
+    from palettenerf_torch.models.palette import PaletteSpec, initialize_palette
+    from palettenerf_torch.ops.hashgrid_fast import hashgrid_encode_fast
+    from palettenerf_torch.ops.rays import sph_from_ray
+    from palettenerf_torch.render.nerf_renderer import RenderSettings
+    from palettenerf_torch.render.palette_renderer import render_palette_eval
+    from palettenerf_torch.train.metrics import make_rlpips_kernels, rlpips_distance
+    from palettenerf_torch.train.trainer import Trainer
+
+    gen = torch.Generator().manual_seed(8)
+    devices = (torch.device("cpu"), dev)
+
+    def both(fn):
+        """fn(device) -> tensor(s); the results of the CPU and of the card, on the CPU."""
+        out = []
+        for d in devices:
+            r = fn(d)
+            out.append([t.detach().float().cpu() for t in (r if isinstance(r, tuple) else (r,))])
+        return out
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
+
+    def rays(n, radius):
+        o = torch.randn((n, 3), generator=gen)
+        o = o / o.norm(dim=-1, keepdim=True) * radius
+        d = -o + 0.8 * torch.randn((n, 3), generator=gen)
+        return o, d / d.norm(dim=-1, keepdim=True)
+
+    err = {}
+    o, d = rays(4096, 2.0)
+    d[:6] = torch.cat([torch.eye(3), -torch.eye(3)])
+    (c,), (g,) = both(lambda dv: sph_from_ray(o.to(dv), d.to(dv), BG_RADIUS))
+    err["sph_from_ray"] = float((c - g).abs().max())
+
+    spec = background_grid(BG_RADIUS)
+    table = torch.empty((spec.total_params, spec.level_dim)).uniform_(-1, 1, generator=gen)
+    x = torch.rand((1 << 16, 2), generator=gen)
+    cot = torch.randn((1 << 16, spec.output_dim), generator=gen)
+
+    def encode(dv):
+        t = table.to(dv, copy=True).requires_grad_(True)
+        out = hashgrid_encode_fast(t, x.to(dv), spec)
+        (out * cot.to(dv)).sum().backward()
+        return out, t.grad
+
+    (fc, gc), (fg, gg) = both(encode)
+    err["bg_encoder"], err["bg_encoder_grad"] = float((fc - fg).abs().max()), rel(gc, gg)
+
+    p = torch.rand((16, 16, 16, 3), generator=gen)
+    q = (p + 0.1 * torch.randn(p.shape, generator=gen)).clamp(0, 1)
+
+    def distance(dv):
+        pp = p.to(dv, copy=True).requires_grad_(True)
+        v = rlpips_distance(make_rlpips_kernels(device=dv), pp, q.to(dv))
+        v.backward()
+        return v, pp.grad
+
+    (vc, dc), (vg, dg) = both(distance)
+    err["rlpips"], err["rlpips_grad"] = abs(float(vc - vg)) / float(vc), rel(dc, dg)
+
+    # dt_gamma 0: the march takes no exp, so both devices place the samples bit for bit (with
+    # the default 1/128 the card's exp moves them by ulps, and on this lively table the hash
+    # grid's gradients follow a sample across a cell boundary by several percent)
+    cfg = Config(O=True, fp16=True, bound=1.0, grid_size=32, num_rays=512, max_steps=256,
+                 train_samples_per_ray=32, log2_hashmap_size=14, grid_levels=8, iters=100,
+                 bg_radius=4.0, patch_size=4, lambda_lpips=0.1, dt_gamma=0.0)
+    nspec = NeRFSpec.build(bound=1.0, fp16=True, log2_hashmap_size=14, grid_levels=8,
+                           bg_radius=4.0)
+    params = init_nerf(nspec, gen)
+    params["encoder"].uniform_(-1, 1, generator=gen)
+    params["encoder_bg"].uniform_(-1, 1, generator=gen)
+    o, d = rays(cfg.num_rays, 2.0)
+    img, noise = torch.rand((cfg.num_rays, 4), generator=gen), torch.rand((cfg.num_rays,),
+                                                                            generator=gen)
+    results = []
+    for device in devices:
+        tr = Trainer("ref", cfg, nspec, params={k: (v.clone() if torch.is_tensor(v) else
+                                                      [w.clone() for w in v])
+                                                for k, v in params.items()},
+                     workspace=os.path.join(WORKSPACE, "options_reference"),
+                     use_checkpoint="scratch", mute=True, device=device)
+        tr.grid_state = tr.grid_state._replace(
+            bitfield=torch.full_like(tr.grid_state.bitfield, 255))
+        before = read_counts()["scatter_add"]
+        loss, _ = tr.train_step(*(t.to(device) for t in (o, d, img)), noise=noise.to(device))
+        results.append((float(loss), [p.grad.cpu() for p in param_list(tr.params)],
+                        read_counts()["scatter_add"] - before))
+    (loss_c, grads_c, n_c), (loss_g, grads_g, n_g) = results
+    n_fg = len(param_list({k: params[k] for k in ("encoder", "sigma_net", "color_net")}))
+    rels = [rel(a, b) for a, b in zip(grads_c, grads_g)]
+    err["step_loss"] = abs(loss_c - loss_g) / abs(loss_c)
+    err["step_table_grad"], err["step_grad"] = rels[0], max(rels[1:n_fg])
+    err["step_bg_grad_l2"] = max(float((a - b).norm() / a.norm())
+                                 for a, b in zip(grads_c[n_fg:], grads_g[n_fg:]))
+    log(f"options reference: bg + patch step loss cpu {loss_c:.7f} gpu {loss_g:.7f}; "
+        f"gradients off by up to {rels[0]:.3e} (encoder, bf16), {err['step_grad']:.3e} "
+        f"(sigma and color nets), {max(rels[n_fg:]):.3e} of the largest entry and "
+        f"{err['step_bg_grad_l2']:.3e} in L2 (encoder_bg, bg_net); scatter_add launches cpu "
+        f"{n_c} gpu {n_g}")
+
+    pspec = PaletteSpec.build(bound=1.0, num_basis=4, log2_hashmap_size=14, grid_levels=8,
+                              bg_radius=4.0, color_space="linear")
+    pparams = _random_palette_params(torch, pspec, gen)
+    pparams.update(init_background(pspec, gen))
+    pparams["encoder_bg"].uniform_(-1, 1, generator=gen)
+    pparams = initialize_palette(pparams, pspec, PALETTE[:4])
+    settings = RenderSettings(bound=1.0, grid_size=32, max_steps=256, num_samples=64,
+                              t_thresh=1e-2, min_near=0.05, bg_radius=4.0)
+    c32 = (torch.arange(32) + 0.5) / 32 * 2 - 1
+    ball = (torch.stack(torch.meshgrid(c32, c32, c32, indexing="ij"), -1) ** 2).sum(-1) < 0.4
+    bits = (ball.reshape(-1, 8).int() << torch.arange(8)).sum(-1).to(torch.uint8)
+    o, d = rays(2048, 2.2)
+    keys = []
+
+    def palette_frame(dv):
+        out = render_palette_eval(_to(torch, pparams, dv), pspec, bits.to(dv), o.to(dv),
+                                  d.to(dv), settings)
+        keys[:] = sorted(out)
+        return tuple(out[k] for k in sorted(out))
+
+    frames = both(palette_frame)
+    ws = frames[0][keys.index("weights_sum")]
+    err["palette_eval"] = max(float((a - b).abs().max()) for a, b in zip(*frames))
+    log(f"options reference: sph_from_ray {err['sph_from_ray']:.2e}; bg encoder "
+        f"{err['bg_encoder']:.2e}, table gradient {err['bg_encoder_grad']:.2e} (relative); "
+        f"rlpips {err['rlpips']:.2e}, input gradient {err['rlpips_grad']:.2e} (relative); "
+        f"palette eval, bg + linear, max abs over {len(keys)} outputs "
+        f"{err['palette_eval']:.2e} ({100 * float((ws < 0.1).float().mean()):.0f}% "
+        f"background rays)")
+    limits = {"sph_from_ray": 1e-6, "bg_encoder": 1e-5, "bg_encoder_grad": OPTIONS_GRAD_RTOL,
+              "rlpips": 1e-5, "rlpips_grad": OPTIONS_GRAD_RTOL, "step_loss": 1e-5,
+              "step_table_grad": 1e-2, "step_grad": OPTIONS_GRAD_RTOL,
+              "step_bg_grad_l2": BG_GRAD_L2_RTOL,
+              "palette_eval": OPTIONS_RENDER_ATOL}
+    bad = {k: v for k, v in err.items() if not v <= limits[k]}
+    if bad or (n_c, n_g) != (0, 1):
+        raise AssertionError(f"options reference: card vs CPU beyond tolerance {bad} "
+                             f"(limits {limits}); scatter_add launches cpu {n_c} gpu {n_g}")
+    return err
+
+
+def phase_bg_patch(torch, dev, train_ds):
+    """Stage 1 with the background net and the rLPIPS patch loss through
+    ``main_nerf.main`` at full width: 300 steps from scratch (host-sampled batches of 16
+    patches of 16x16 pixels), then the CLI's test tail with the JAX meter list (PSNR,
+    LPIPS: NaN without the ``lpips`` package, rLPIPS) and its mesh. Then validation view 0
+    against the training target: with the background net the target is the straight RGB
+    of the RGBA images (black under alpha 0 in proc_toys), while the meters composite the
+    ground truth on white, as the JAX package does. Then B1 held and timed on the stream
+    of one patch batch marched through the trained grid. Returns (launch counts, what
+    was measured, the stream's times and bound)."""
+    import shutil
+
+    import numpy as np
+
+    from palettenerf_torch import main_nerf
+    from palettenerf_torch.config import Config
+    from palettenerf_torch.data.provider import NeRFDataset
+    from palettenerf_torch.data.rays import sample_ray_indices
+    from palettenerf_torch.models.nerf import param_list
+    from palettenerf_torch.ops import hashgrid_fast, scatter
+    from palettenerf_torch.train.metrics import psnr
+
+    shutil.rmtree(os.path.join(ROOT, os.path.dirname(BG_PATCH_WS)), ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    # -------------------------------------------------------------- main path
+    t0 = time.perf_counter()
+    trainer = main_nerf.main(BG_PATCH_ARGS, device=dev, mesh_resolution=BG_MESH_RESOLUTION)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = read_counts()
+    # -------------------------------------------------------------- checks
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses, secs = trainer.stats["loss"], trainer.stats["epoch_seconds"]
+    meters = {m.name: m.measure() for m in trainer.metrics}
+    n_views = len(train_ds)
+    steps_per_s = [n_views / s for s in secs]
+    log(f"bg + patch path: {trainer.global_step} steps in {total_s:.1f} s with the test "
+        f"split's evaluation, renders and the {BG_MESH_RESOLUTION}^3 mesh; epoch losses "
+        f"{['%.5f' % v for v in losses]}; steps/s per epoch {['%.2f' % v for v in steps_per_s]}; "
+        f"test meters (gt on white) {meters}; peak memory {peak_gb:.2f} GiB; launches "
+        f"{launches}")
+    if [m.name for m in trainer.metrics] != ["PSNR", "LPIPS (alex)", "rLPIPS"]:
+        raise AssertionError(f"meters {[m.name for m in trainer.metrics]}")
+    if trainer.global_step != EPOCHS * n_views or not trainer.host_sampled():
+        raise AssertionError(f"{trainer.global_step} steps, host-sampled "
+                             f"{trainer.host_sampled()}")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"bg + patch loss did not fall: {losses}")
+    if launches["scatter_add"] != trainer.global_step:
+        raise AssertionError(f"scatter_add launched {launches['scatter_add']} times in "
+                             f"{trainer.global_step} steps")
+    if lpips_missing() and not math.isnan(meters["LPIPS (alex)"]):
+        raise AssertionError("LPIPS reported a number without the lpips package")
+    if not (math.isfinite(meters["PSNR"]) and meters["rLPIPS"] > 0
+            and math.isfinite(meters["rLPIPS"])):
+        raise AssertionError(f"test meters {meters}")
+    if not all(bool(torch.isfinite(p).all()) for p in param_list(trainer.params)):
+        raise AssertionError("non-finite parameters")
+
+    valid_ds = NeRFDataset(Config(path=SCENE, bound=1.0, scale=0.8), type="val")
+    data = valid_ds.collate(0)
+    out = trainer.eval_step_full(data)
+    img = data["images"]
+    target_psnr = psnr(out["image"], img[..., :3])
+    white_psnr = psnr(out["image"], img[..., :3] * img[..., 3:] + (1.0 - img[..., 3:]))
+    log(f"bg + patch path: val view 0 PSNR {target_psnr:.3f} dB against the training target "
+        f"(straight RGB), {white_psnr:.3f} dB against the image on white")
+    if not all(np.isfinite(v).all() for v in out.values()):
+        raise AssertionError("non-finite render")
+    if not target_psnr > BG_PATCH_PSNR_FLOOR:
+        raise AssertionError(f"bg + patch validation PSNR {target_psnr:.3f} dB <= floor "
+                             f"{BG_PATCH_PSNR_FLOOR}")
+
+    # B1 on the stream of one patch batch: 16 patches of 16x16 of training view 0
+    opt, spec = trainer.opt, trainer.spec.grid
+    inds, _ = sample_ray_indices(np.random.default_rng(5), train_ds.H, train_ds.W,
+                                 opt.num_rays, patch_size=opt.patch_size)
+    m, x01, gen = march_train_batch(torch, trainer, train_ds, 5,
+                                    torch.as_tensor(inds, device=dev))
+    idx = hashgrid_fast.corner_indices(spec, x01)[0].reshape(-1).contiguous()
+    U, C = idx.numel(), spec.level_dim
+    vals = torch.randn((U, C), generator=gen, device=dev) * 1e-3
+    vals = (vals.view(-1, SCATTER_PERIOD, C) * m.mask.reshape(-1, 1, 1)).view(U, C)
+    vals = vals.to(torch.bfloat16)
+    log(f"bg + patch stream: {len(inds)} rays in {len(inds) // opt.patch_size ** 2} patches "
+        f"of {opt.patch_size}x{opt.patch_size}, {100 * float(m.mask.float().mean()):.2f}% of "
+        f"the slots hold a sample")
+    max_err, _ = check_scatter(torch, scatter, idx, vals, spec.total_params,
+                               "bg + patch stream", SCATTER_PERIOD)
+    stream_stats(torch, spec, idx, vals, "bg + patch")
+    t = time_scatter(torch, scatter, idx, vals, spec.total_params, "bg + patch")
+    n_bytes = U * (4 + 2 * C) + spec.total_params * C * 4
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, U * C / FP32_FLOPS * 1e3
+    t.update(U=U, max_abs_err=max_err, bound_ms=max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations")
+    info = {"steps_per_s": steps_per_s, "losses": losses, "test_meters": meters,
+            "val_psnr_target": target_psnr, "val_psnr_white": white_psnr, "total_s": total_s,
+            "peak_gib": peak_gb}
+    del trainer
+    torch.cuda.empty_cache()
+    return launches, info, t
+
+
+def phase_bg_linear_palette(torch, dev):
+    """The palette stages with the background net in linear colour space on the workspace
+    of ``phase_bg_patch``: extraction from sweep renders through ``main_palette.main``,
+    then the CLI's training run (``main_palette.load_train_trainer``, the trainer ``main``
+    trains, and ``train`` over three epochs, one per schedule phase) without its test tail
+    (16 frames of ~12 s on this cell's field: cut for time, PERF.md §4). The bg net is
+    warm-started from stage 1: the trainer holds stage 1's ``encoder_bg`` and ``bg_net`` at
+    step 0, and its log counts the tensors it loaded. Then validation view 0 in linear
+    space against the training target and, through the CLI's meters, the gt on white.
+    Returns (launch counts, what was measured)."""
+    import shutil
+
+    import numpy as np
+
+    from palettenerf_torch import main_palette
+    from palettenerf_torch.config import Config
+    from palettenerf_torch.data.palette_provider import PaletteDataset
+    from palettenerf_torch.data.provider import NeRFDataset
+    from palettenerf_torch.train import checkpoint as ckpt_lib
+    from palettenerf_torch.train.metrics import psnr
+    from palettenerf_torch.train.trainer import eval_gt
+    from palettenerf_torch.utils.color import srgb_to_linear
+
+    shutil.rmtree(os.path.join(ROOT, "results_palette", "chip_smoke_bg"), ignore_errors=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    extractor = main_palette.main(BG_LINEAR_ARGS + ["--extract_palette", "--extract_via_sweep"],
+                                  device=dev)
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    pal_ws, stats = extractor.workspace, extractor.extract_stats
+    del extractor
+    palette = np.load(os.path.join(pal_ws, "palette.npz"))["palette"]
+    hist = np.load(os.path.join(pal_ws, "hist_weights.npz"))["hist_weights"]
+    P = palette.shape[0]
+    log(f"bg + linear extraction: {extract_s:.1f} s, P = {P}, {stats['foreground_samples']} "
+        f"foreground samples; palette of the linear ground truth "
+        + np.array2string(palette, precision=4).replace("\n", ""))
+    if not 4 <= P <= 8 or palette.min() < 0.0 or palette.max() > 1.0 or \
+            hist.shape != (32, 32, 32, P) or np.abs(hist.sum(-1) - 1.0).max() > 1e-6:
+        raise AssertionError(f"bg + linear extraction: palette {palette}, hist {hist.shape}")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    # -------------------------------------------------------------- main path
+    t0 = time.perf_counter()
+    cfg, trainer = main_palette.load_train_trainer(BG_LINEAR_TRAIN_ARGS, device=dev)
+    stage1 = ckpt_lib.load_checkpoint(ckpt_lib.latest_checkpoint(
+        os.path.join(ROOT, BG_PATCH_WS, "checkpoints"), "ngp"))["params"]
+    warm = all(torch.equal(a.detach().cpu(), b) for a, b in zip(
+        [trainer.params["encoder_bg"], *trainer.params["bg_net"]],
+        [stage1["encoder_bg"], *stage1["bg_net"]]))
+    train_ds = PaletteDataset(cfg, type="train")
+    epochs = int(np.ceil(cfg.iters / len(train_ds)))
+    trainer.train(train_ds, None, epochs)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = read_counts()
+    # -------------------------------------------------------------- checks
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses, secs = trainer.stats["loss"], trainer.stats["epoch_seconds"]
+    steps_per_s = [len(train_ds) / s for s in secs]
+    with open(trainer.log_path) as f:
+        loaded = [line.strip() for line in f if "warm-started" in line]
+    log(f"bg + linear palette path: {trainer.global_step} steps in {total_s:.1f} s with data "
+        f"loading and checkpoints; epoch losses {['%.5f' % v for v in losses]}; steps/s per "
+        f"epoch (colors frozen / + smooth loss / + colors unfrozen) "
+        f"{['%.2f' % v for v in steps_per_s]}; peak memory {peak_gb:.2f} GiB; launches "
+        f"{launches}; bg net at step 0 = stage 1's: {warm}; {loaded}")
+    if not warm:
+        raise AssertionError("the palette trainer's bg net at step 0 is not stage 1's")
+    if len(loaded) != 1 or "warm-started 9 tensors" not in loaded[0]:
+        raise AssertionError(f"warm start: {loaded} (9 tensors expected: encoder, 2 sigma_net, "
+                             "3 color_net, encoder_bg, 2 bg_net)")
+    if trainer.global_step != epochs * len(train_ds) or len(losses) != epochs:
+        raise AssertionError(f"{trainer.global_step} steps in {len(losses)} epochs")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"bg + linear palette loss did not fall: {losses}")
+    if launches["scatter_add"] < trainer.global_step:
+        raise AssertionError(f"scatter_add launched {launches['scatter_add']} times")
+    ep2 = ckpt_lib.load_checkpoint(os.path.join(trainer.workspace, "checkpoints",
+                                                "palette_ep0002.ckpt"))["params"]
+    linear = srgb_to_linear(torch.from_numpy(palette.astype(np.float32)))
+    if not torch.allclose(ep2["basis_color"], linear, rtol=0, atol=1e-6):
+        raise AssertionError("the frozen basis colors are not the extracted palette taken "
+                             "to linear space")
+
+    data = NeRFDataset(Config(path=SCENE, bound=1.0, scale=0.8), type="val").collate(0)
+    t0 = time.perf_counter()
+    out = trainer.eval_step_full(data)
+    eval_s = time.perf_counter() - t0
+    img = data["images"]
+    target = srgb_to_linear(torch.from_numpy(np.ascontiguousarray(img[..., :3]))).numpy()
+    target_psnr = psnr(out["image"], target)
+    gt = eval_gt(trainer.opt, img)
+    for m in trainer.metrics:
+        m.clear()
+        m.update(out["image"][None], gt[None])
+    meters = {m.name: m.measure() for m in trainer.metrics}
+    log(f"bg + linear palette path: val view 0 ({eval_s:.2f} s/frame) PSNR {target_psnr:.3f} "
+        f"dB against the training target (straight RGB, linear); the CLI's meters against the "
+        f"gt on white (linear) {meters}")
+    if not all(np.isfinite(v).all() for v in out.values()):
+        raise AssertionError("non-finite palette render")
+    if lpips_missing() and not math.isnan(meters["LPIPS (alex)"]):
+        raise AssertionError("LPIPS reported a number without the lpips package")
+    if not target_psnr > BG_LINEAR_PSNR_FLOOR:
+        raise AssertionError(f"bg + linear palette validation PSNR {target_psnr:.3f} dB <= "
+                             f"floor {BG_LINEAR_PSNR_FLOOR}")
+    info = {"extract_s": extract_s, "P": P, "foreground_samples": stats["foreground_samples"],
+            "steps_per_s": steps_per_s, "losses": losses, "val_psnr_target": target_psnr,
+            "val_meters": meters, "eval_s": eval_s, "total_s": total_s, "peak_gib": peak_gb}
+    del trainer
+    torch.cuda.empty_cache()
+    return launches, info
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "palettenerf_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -1938,6 +2371,9 @@ def main() -> int:
     compact_eval = phase_compact_eval(torch, dev)
     o2_ref_err = phase_o2_reference(torch, dev)
     o2_launches, o2 = phase_o2_main_path(torch, dev, train_ds, o_psnr)
+    options_err = phase_options_reference(torch, dev)
+    bg_launches, bg_patch, bg_stream = phase_bg_patch(torch, dev, train_ds)
+    bg_palette_launches, bg_palette = phase_bg_linear_palette(torch, dev)
     phase_palette_reference(torch, dev)
     palette_launches, palette_ws, o_palette_psnr = phase_palette(torch, dev, train_ds)
     n_views = len(train_ds)
@@ -1949,7 +2385,8 @@ def main() -> int:
     o2_palette_launches, o2_edit_launches, o2_palette = phase_o2_palette(
         torch, dev, o_palette_psnr, n_views)
     for k in kernels:
-        k["path"] = "train, palette, edit, train-O2, palette-O2, edit-O2, train-compact"
+        k["path"] = ("train, palette, edit, train-O2, palette-O2, edit-O2, train-compact, "
+                     "train-bg-patch, palette-bg-linear")
         k["launches"] = train_launches[k["name"]]
         k["palette_launches"] = palette_launches[k["name"]]
         k["edit_launches"] = edit_launches[k["name"]]
@@ -1962,12 +2399,17 @@ def main() -> int:
         k["fast_grad_stream"] = o2["streams"]["fast_grad"]
         k["train_compact_launches"] = compact_launches[k["name"]]
         k["compact_stream"] = compact_stream
+        k["bg_patch_launches"] = bg_launches[k["name"]]
+        k["bg_patch_stream"] = bg_stream
+        k["palette_bg_linear_launches"] = bg_palette_launches[k["name"]]
     kernels.append(wg_entry)
     log("compaction summary: " + json.dumps({
         "reference_max_abs_err": compact_ref_err, "train": compact_train,
         "stage1_eval": compact_eval, "palette_eval": compact_palette, "edit": compact_edit}))
     log("-O2 summary: " + json.dumps({"train": {k: v for k, v in o2.items() if k != "streams"},
                                       "palette": o2_palette}))
+    log("model options summary: " + json.dumps({"reference": options_err, "bg_patch": bg_patch,
+                                                "palette_bg_linear": bg_palette}))
     phase_serve_reference(torch, dev)
     phase_serve(torch, dev, palette_ws)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -20,7 +20,10 @@ eval render and the mesh export (``python -m palettenerf_torch.main_nerf``); pal
 extraction and PaletteNeRF training (``python -m palettenerf_torch.main_palette``);
 interactive editing (``palettenerf_torch.gui``); serving — a trained palette
 checkpoint baked into dense volumes, frames by the shear-warp sweep with live recolors
-(``python -m palettenerf_torch.main_serve``); and the window-gather kernel.
+(``python -m palettenerf_torch.main_serve``); every training profile and model option of
+the JAX trainers but ``--n_devices > 1`` and ``--rand_pose`` (the background net, the
+linear colour space, the rLPIPS patch loss and the meters among them); the leaf ops; and
+the window-gather kernel.
 """
 
 from __future__ import annotations

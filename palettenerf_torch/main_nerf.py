@@ -5,12 +5,19 @@
     python -m palettenerf_torch.main_nerf data_proc/proc_toys -O2 --bound 1 --scale 0.8 \
         --bg_radius 0 --density_thresh 10 --iters 8000 --workspace proc_toys_o2
 
-``-O2`` is ``-O`` plus ``--fast_grad --stochastic_trilerp --grad_levels 8``;
-``--gridtype hash_xadd`` and ``--error_map`` combine with either.
+    # the background net and the random-feature LPIPS loss on 16x16 pixel patches
+    python -m palettenerf_torch.main_nerf data_proc/proc_toys -O --bound 1 --scale 0.8 \
+        --density_thresh 10 --bg_radius 32 --patch_size 16 --lambda_lpips 0.1 \
+        --iters 8000 --workspace proc_toys_bg
 
-Same flags as the JAX package's ``main_nerf.py`` (flags of paths that are not ported
-yet are accepted and raise). Both branches end with the mesh export, ``save_mesh(256,
-10)`` -> ``<workspace>/meshes/ngp_<epoch>.ply``; ``--gui`` opens the DearPyGui viewer
+``-O2`` is ``-O`` plus ``--fast_grad --stochastic_trilerp --grad_levels 8``;
+``--gridtype hash_xadd``, ``--error_map``, ``--color_space linear`` combine with either.
+
+Same flags as the JAX package's ``main_nerf.py`` (``--n_devices > 1`` and
+``--rand_pose`` are accepted and raise) and the same meters: PSNR, LPIPS (NaN without
+the ``lpips`` package) and rLPIPS in training, SSIM too with ``--test``. Both branches
+end with the mesh export, ``save_mesh(256, 10)`` ->
+``<workspace>/meshes/ngp_<epoch>.ply``; ``--gui`` opens the DearPyGui viewer
 instead (``palettenerf_torch.gui.NeRFGUI``; without the ``dearpygui`` package it raises,
 and ``palettenerf_torch.gui.EditingSession`` is the headless way in). Runs on CUDA;
 ``main(argv, device="cpu")`` runs on the CPU.
@@ -134,6 +141,7 @@ def main(argv=None, device="cuda", mesh_resolution: int = 256):
     from .config import Config
     from .data.provider import NeRFDataset
     from .models.nerf import NeRFSpec
+    from .train.metrics import LPIPSMeter, PSNRMeter, RLPIPSMeter, SSIMMeter
     from .train.trainer import Trainer, check_ported
 
     opt = build_parser().parse_args(argv)
@@ -153,7 +161,8 @@ def main(argv=None, device="cuda", mesh_resolution: int = 256):
     workspace = resolve_workspace("results", cfg.workspace, cfg.version_id, cfg.test)
 
     if cfg.test:
-        trainer = Trainer("ngp", cfg, spec, workspace=workspace,
+        metrics = [PSNRMeter(), SSIMMeter(), LPIPSMeter(), RLPIPSMeter(device=device)]
+        trainer = Trainer("ngp", cfg, spec, workspace=workspace, metrics=metrics,
                           use_checkpoint=cfg.ckpt, device=device)
         if cfg.gui:
             from .gui.dpg_gui import NeRFGUI
@@ -163,8 +172,10 @@ def main(argv=None, device="cuda", mesh_resolution: int = 256):
     else:
         train_ds = NeRFDataset(cfg, type="train")
         valid_ds = NeRFDataset(cfg, type="val", downscale=1)
-        trainer = Trainer("ngp", cfg, spec, workspace=workspace, use_checkpoint=cfg.ckpt,
-                          ema_decay=0.95, eval_interval=cfg.eval_interval, device=device)
+        metrics = [PSNRMeter(), LPIPSMeter(), RLPIPSMeter(device=device)]
+        trainer = Trainer("ngp", cfg, spec, workspace=workspace, metrics=metrics,
+                          use_checkpoint=cfg.ckpt, ema_decay=0.95,
+                          eval_interval=cfg.eval_interval, device=device)
         if cfg.gui:
             from .gui.dpg_gui import NeRFGUI
 

@@ -13,13 +13,20 @@ an NVIDIA GPU.
         --bound 1 --scale 0.8 --bg_radius 0 --density_thresh 10 \
         --use_initialization_from_rgbxy --use_normalized_palette --dt_gamma 0 \
         --datatype blender --iters 8000 --random_size 8 --lambda_patchsmooth 1e-3
+    # on a stage-1 workspace trained with the background net, in linear colour space
+    python -m palettenerf_torch.main_palette data_proc/proc_toys results/proc_toys_bg -O \
+        --bound 1 --scale 0.8 --density_thresh 10 --bg_radius 32 --color_space linear \
+        --use_initialization_from_rgbxy --use_normalized_palette --dt_gamma 0 \
+        --datatype blender --iters 8000
 
-Same flags as the JAX package's ``main_palette.py`` (flags of paths that are not ported
-yet are accepted and raise), including the nerf-version discovery and the
-``results_palette/...`` workspace mirroring (reference ``main_palette.py:114-132``), the
-palette size taken from the extracted palette (:137-141), and the three branches extract
-/ test / train (:147-243). The stage-1 workspace is one that ``main_nerf`` of this
-package wrote (a JAX-package stage-1 pickle is read too). Runs on CUDA;
+Same flags as the JAX package's ``main_palette.py`` (``--n_devices > 1`` and
+``--rand_pose`` are accepted and raise) and the same meters (PSNR, LPIPS, rLPIPS in
+training; PSNR, SSIM, LPIPS, rLPIPS, TV, Sparsity with ``--test``), including the
+nerf-version discovery and the ``results_palette/...`` workspace mirroring (reference
+``main_palette.py:114-132``), the palette size taken from the extracted palette
+(:137-141), and the three branches extract / test / train (:147-243). The stage-1
+workspace is one that ``main_nerf`` of this package wrote (a JAX-package stage-1 pickle
+is read too). Runs on CUDA;
 ``main(argv, device="cpu")`` runs on the CPU.
 """
 
@@ -223,16 +230,46 @@ def _palette_spec(cfg):
 
 
 def _test_trainer(cfg, workspace: str, extracted, device):
-    from .train.metrics import PSNRMeter, SparsityMeter, SSIMMeter, TVMeter
+    from .train.metrics import (LPIPSMeter, PSNRMeter, RLPIPSMeter, SparsityMeter, SSIMMeter,
+                                TVMeter)
     from .train.palette_trainer import PaletteTrainer
 
-    metrics = [PSNRMeter(), SSIMMeter(), TVMeter(), SparsityMeter()]
+    metrics = [PSNRMeter(), SSIMMeter(), LPIPSMeter(), RLPIPSMeter(device=device), TVMeter(),
+               SparsityMeter()]
     trainer = PaletteTrainer("palette", cfg, _palette_spec(cfg), workspace=workspace,
                              metrics=metrics, use_checkpoint=cfg.ckpt, nerf_path=None,
                              device=device)
     if trainer.params.get("hist_weights") is None and extracted[1] is not None:
         trainer.initialize_palette(*extracted)
     return trainer
+
+
+def _train_trainer(cfg, paths, extracted, device):
+    """The PaletteTrainer of a training run: warm-started from the stage-1 workspace on a
+    fresh run, with the extracted palette then set (main_palette.py:249-257)."""
+    from .train.metrics import LPIPSMeter, PSNRMeter, RLPIPSMeter
+    from .train.palette_trainer import PaletteTrainer
+
+    nerf_path, _, workspace = paths
+    trainer = PaletteTrainer("palette", cfg, _palette_spec(cfg), workspace=workspace,
+                             metrics=[PSNRMeter(), LPIPSMeter(), RLPIPSMeter(device=device)],
+                             use_checkpoint=cfg.ckpt, nerf_path=nerf_path, ema_decay=0.95,
+                             eval_interval=cfg.eval_interval, device=device)
+    if trainer.global_step == 0:
+        # fresh run only: a resumed checkpoint already carries the initialized palette and
+        # the Adam / EMA state that initialize_palette would reset
+        trainer.initialize_palette(*extracted)
+    return trainer
+
+
+def load_train_trainer(argv=None, device="cuda"):
+    """The PaletteTrainer that a training run of ``main`` trains, built as ``main`` builds
+    it, before its first step: (cfg, trainer)."""
+    cfg, paths, extracted = _setup(argv)
+    if cfg.test or cfg.extract_palette:
+        raise ValueError("load_train_trainer loads a training run's trainer: no --test, "
+                         "no --extract_palette")
+    return cfg, _train_trainer(cfg, paths, extracted, device)
 
 
 def load_test_trainer(argv=None, device="cuda"):
@@ -248,7 +285,6 @@ def main(argv=None, device="cuda"):
     from .data.palette_provider import PaletteDataset
     from .models.nerf import NeRFSpec
     from .models.palette import PaletteSpec
-    from .train.metrics import PSNRMeter
     from .train.palette_trainer import PaletteTrainer
     from .train.trainer import Trainer
 
@@ -285,15 +321,8 @@ def main(argv=None, device="cuda"):
         if cfg.video:
             raise NotImplementedError("--video output is not ported (it needs cv2)")
     else:
-        trainer = PaletteTrainer("palette", cfg, _palette_spec(cfg), workspace=workspace,
-                                 metrics=[PSNRMeter()], use_checkpoint=cfg.ckpt,
-                                 nerf_path=nerf_path, ema_decay=0.95,
-                                 eval_interval=cfg.eval_interval, device=device)
-        if trainer.global_step == 0:
-            # fresh run only: a resumed checkpoint already carries the initialized
-            # palette and the Adam / EMA state that initialize_palette would reset
-            trainer.initialize_palette(*extracted)
-
+        trainer = _train_trainer(cfg, (nerf_path, palette_workspace, workspace), extracted,
+                                 device)
         train_ds = PaletteDataset(cfg, type="train")
         valid_ds = PaletteDataset(cfg, type="val", downscale=1)
         max_epoch = int(np.ceil(cfg.iters / len(train_ds)))

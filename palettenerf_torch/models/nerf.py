@@ -1,13 +1,16 @@
 """Instant-NGP NeRF network (stage 1) as functions on a parameter dict.
 
-Port of ``palettenerf_tpu/models/nerf.py`` without the background net:
-hash encoder (16 levels x 2 features, desired resolution 2048*bound) -> bias-free
-sigma MLP -> [sigma (trunc_exp), 15-dim geo feature]; SH degree-4 direction encoding
-+ geo feature -> bias-free color MLP -> sigmoid rgb.
+Port of ``palettenerf_tpu/models/nerf.py``: hash encoder (16 levels x 2 features,
+desired resolution 2048*bound) -> bias-free sigma MLP -> [sigma (trunc_exp), 15-dim geo
+feature]; SH degree-4 direction encoding + geo feature -> bias-free color MLP -> sigmoid
+rgb. With ``bg_radius > 0`` the background net (network.py:70-92, 145-160): a 2D hash
+encoding (4 levels, desired resolution 2048) of where the ray leaves the background
+sphere, after the SH encoding of the direction, -> bias-free MLP -> sigmoid rgb.
 
-Parameters: ``{"encoder": [T, C], "sigma_net": [W...], "color_net": [W...]}`` with every
-weight ``[in, out]`` — the JAX package's tree with ``{"w": W}`` layers flattened to
-tensors (``train/checkpoint.py:params_from_jax`` converts).
+Parameters: ``{"encoder": [T, C], "sigma_net": [W...], "color_net": [W...]}``, plus
+``"encoder_bg"`` and ``"bg_net"`` with ``bg_radius > 0``, with every weight ``[in, out]``
+— the JAX package's tree with ``{"w": W}`` layers flattened to tensors
+(``train/checkpoint.py:params_from_jax`` converts).
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ import torch
 
 from ..ops.activation import trunc_exp
 from ..ops.hashgrid import HashGridSpec, init_hashgrid
-from ..ops.hashgrid_fast import EncodeRand, hashgrid_encode_fast_bounded, make_encode_rand
+from ..ops.hashgrid_fast import (EncodeRand, hashgrid_encode_fast, hashgrid_encode_fast_bounded,
+                                 make_encode_rand)
 from ..ops.sh import sh_encode
 from .mlp import apply_mlp, init_mlp
 
@@ -34,6 +38,8 @@ class NeRFSpec:
     geo_feat_dim: int = 15
     num_layers_color: int = 3
     hidden_dim_color: int = 64
+    num_layers_bg: int = 2
+    hidden_dim_bg: int = 64
     sh_degree: int = 4
     bg_radius: float = -1.0
     fp16: bool = False  # -O: bf16 hash-grid backward scatter; forward stays f32
@@ -41,19 +47,19 @@ class NeRFSpec:
     stochastic_trilerp: bool = False  # train-only 1-corner Monte-Carlo trilerp
     grad_levels: int = 0  # backward-only level subsampling (0 = all levels)
     grid: HashGridSpec = None  # type: ignore[assignment]
+    grid_bg: Optional[HashGridSpec] = None
 
     @classmethod
     def build(cls, bound: float = 1.0, bg_radius: float = -1.0,
               log2_hashmap_size: int = 19, grid_levels: int = 16,
               grid_level_dim: int = 2, gridtype: str = "hash", **kw) -> "NeRFSpec":
-        if bg_radius > 0:
-            raise NotImplementedError("the background net (bg_radius > 0) is not ported yet")
         grid = HashGridSpec.build(
             desired_resolution=2048 * bound, num_levels=grid_levels,
             level_dim=grid_level_dim, log2_hashmap_size=log2_hashmap_size,
             gridtype=gridtype,
         )
-        return cls(bound=bound, bg_radius=bg_radius, grid=grid, **kw)
+        return cls(bound=bound, bg_radius=bg_radius, grid=grid,
+                   grid_bg=background_grid(bg_radius), **kw)
 
     @property
     def sh_dim(self) -> int:
@@ -67,12 +73,32 @@ class NeRFSpec:
 Params = Dict[str, object]
 
 
+def background_grid(bg_radius: float) -> Optional[HashGridSpec]:
+    """The background net's 2D grid (levels 16, 81, 407, 2048: three dense, one
+    hashed), or None without a background net."""
+    if bg_radius <= 0:
+        return None
+    return HashGridSpec.build(input_dim=2, num_levels=4, desired_resolution=2048)
+
+
+def init_background(spec, generator: torch.Generator, device="cpu") -> Params:
+    """``encoder_bg`` and ``bg_net`` of ``spec`` (a NeRFSpec or PaletteSpec) with
+    ``bg_radius > 0``, else nothing."""
+    if spec.bg_radius <= 0:
+        return {}
+    return {
+        "encoder_bg": init_hashgrid(spec.grid_bg, generator, device),
+        "bg_net": init_mlp(_mlp_dims(spec.grid_bg.output_dim + spec.sh_dim, spec.hidden_dim_bg,
+                                     3, spec.num_layers_bg), generator, device),
+    }
+
+
 def _mlp_dims(in_dim, hidden, out_dim, num_layers) -> List[int]:
     return [in_dim] + [hidden] * (num_layers - 1) + [out_dim]
 
 
 def init_nerf(spec: NeRFSpec, generator: torch.Generator, device="cpu") -> Params:
-    return {
+    params = {
         "encoder": init_hashgrid(spec.grid, generator, device),
         "sigma_net": init_mlp(_mlp_dims(spec.grid.output_dim, spec.hidden_dim,
                                         1 + spec.geo_feat_dim, spec.num_layers),
@@ -81,11 +107,17 @@ def init_nerf(spec: NeRFSpec, generator: torch.Generator, device="cpu") -> Param
                                         spec.hidden_dim_color, 3, spec.num_layers_color),
                               generator, device),
     }
+    params.update(init_background(spec, generator, device))
+    return params
 
 
 def param_list(params: Params) -> List[torch.Tensor]:
-    """Every tensor of the parameter dict, in a fixed order."""
-    return [params["encoder"], *params["sigma_net"], *params["color_net"]]
+    """Every tensor of the parameter dict, in a fixed order (the background net's
+    last, where there is one)."""
+    out = [params["encoder"], *params["sigma_net"], *params["color_net"]]
+    if "encoder_bg" in params:
+        out += [params["encoder_bg"], *params["bg_net"]]
+    return out
 
 
 def encode_rand_for(generator: torch.Generator, spec, n_samples: int) -> Optional[EncodeRand]:
@@ -127,3 +159,13 @@ def nerf_forward(params: Params, spec: NeRFSpec, x: torch.Tensor, d: torch.Tenso
                  training: bool = False, rand: Optional[EncodeRand] = None):
     dens = nerf_density(params, spec, x, training, rand)
     return dens["sigma"], nerf_color(params, spec, d, dens["geo_feat"])
+
+
+def nerf_background(params: Params, spec, sph: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Background rgb [..., 3] of ``spec`` (a NeRFSpec or PaletteSpec): sph [..., 2] in
+    [-1, 1] (``ops.rays.sph_from_ray``), d [..., 3] unit directions (network.py:145-160).
+    The grid encoding is f32 with an f32 ``index_add_`` backward, as the JAX package's
+    XLA scatter; the SH encoding comes first in the MLP's input."""
+    h = hashgrid_encode_fast(params["encoder_bg"], (sph + 1.0) * 0.5, spec.grid_bg)
+    h = torch.cat([sh_encode(d, spec.sh_degree), h], dim=-1)
+    return apply_mlp(params["bg_net"], h, final_activation=torch.sigmoid)

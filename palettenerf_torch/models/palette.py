@@ -2,15 +2,17 @@
 
 Port of ``palettenerf_tpu/models/palette.py`` (``PaletteSpec``, ``init_palette``,
 ``initialize_palette``, ``palette_density``, ``palette_color``, ``palette_view_dep``,
-``palette_forward``, ``get_palette_weight_with_hist``): the palette trainer and the
-serving bake evaluate the field through these. Three hash encoders (``encoder`` for sigma, ``encoder_palette``, ``encoder_clip``) on the port's
+``palette_forward``, ``palette_background``, ``get_palette_weight_with_hist``): the
+palette trainer and the serving bake evaluate the field through these. Three hash
+encoders (``encoder`` for sigma, ``encoder_palette``, ``encoder_clip``) on the port's
 ``hashgrid_encode_fast_bounded``; bias-free MLPs except ``offsets_radiance_net``
 (Linear 15 -> 3P+1 with a bias); ``basis_net`` with ELU activations; ``omega`` =
 softplus + 0.05, normalized to sum 1.
 
 Parameters (``train/checkpoint.py:palette_params_from_jax``): ``encoder``,
 ``encoder_palette`` [T, C] tables, ``encoder_clip`` + ``clip_net`` with ``pred_clip``,
-the MLP layer lists ``sigma_net``, ``color_net``, ``diff_net``, ``basis_net``,
+``encoder_bg`` + ``bg_net`` with ``bg_radius > 0`` (the NeRF's background net), the MLP
+layer lists ``sigma_net``, ``color_net``, ``diff_net``, ``basis_net``,
 ``offsets_radiance_net``, ``omega_net``, the trainable ``basis_color`` [P, 3], its frozen
 copy ``basis_color_origin`` and, after ``initialize_palette``, the frozen
 ``hist_weights`` [32, 32, 32, P].
@@ -21,7 +23,8 @@ head and ``diffuse`` before ``basis_net``; the palette renderer detaches sigma.
 The training-only encoder options (``fast_grad``, ``stochastic_trilerp``,
 ``grad_levels``) act as in ``models/nerf.py``: with ``training`` every encoder of one
 forward (``encoder``, ``encoder_palette``, ``encoder_clip``) takes the same ``rand``.
-Not ported yet: the background net (``bg_radius > 0``) and ``color_space="linear"``.
+With ``color_space="linear"`` the palette is stored in linear space
+(``initialize_palette``); the renders stay linear.
 """
 
 from __future__ import annotations
@@ -37,14 +40,14 @@ from ..ops.activation import trunc_exp
 from ..ops.hashgrid import HashGridSpec, init_hashgrid
 from ..ops.hashgrid_fast import EncodeRand
 from ..ops.sh import sh_encode
+from ..utils.color import srgb_to_linear
 from .mlp import apply_mlp, init_mlp
-from .nerf import encode_field
+from .nerf import background_grid, encode_field, init_background, nerf_background
 
 
 @dataclass(frozen=True)
 class PaletteSpec:
-    """Static model hyperparameters (the JAX package's spec without the background
-    net; ``bg_radius > 0`` and the linear color space raise when set)."""
+    """Static model hyperparameters."""
 
     bound: float = 1.0
     num_basis: int = 4
@@ -55,6 +58,8 @@ class PaletteSpec:
     geo_feat_dim: int = 15
     num_layers_color: int = 3
     hidden_dim_color: int = 64
+    num_layers_bg: int = 2
+    hidden_dim_bg: int = 64
     sh_degree: int = 4
     bg_radius: float = -1.0
     color_space: str = "srgb"
@@ -62,17 +67,12 @@ class PaletteSpec:
     smooth_sigma_color: float = 0.2
     smooth_sigma_clip: float = 0.0
     grid: HashGridSpec = None  # type: ignore[assignment]
+    grid_bg: Optional[HashGridSpec] = None
 
     fp16: bool = False
     fast_grad: bool = False
     stochastic_trilerp: bool = False
     grad_levels: int = 0
-
-    def __post_init__(self):
-        if self.bg_radius > 0:
-            raise NotImplementedError("the background net (bg_radius > 0) is not ported yet")
-        if self.color_space != "srgb":
-            raise NotImplementedError(f"color_space={self.color_space} is not ported yet")
 
     @classmethod
     def build(cls, bound: float = 1.0, bg_radius: float = -1.0, num_basis: int = 4,
@@ -86,7 +86,7 @@ class PaletteSpec:
         )
         return cls(bound=bound, bg_radius=bg_radius, num_basis=num_basis,
                    pred_clip=pred_clip, clip_dim=clip_dim, color_space=color_space,
-                   grid=grid, **kw)
+                   grid=grid, grid_bg=background_grid(bg_radius), **kw)
 
     @property
     def scatter_dtype(self) -> Optional[torch.dtype]:
@@ -129,18 +129,22 @@ def init_palette(spec: PaletteSpec, generator: torch.Generator, device="cpu") ->
     }
     if spec.pred_clip:
         params["clip_net"] = mlp(_dims(n, spec.hidden_dim, spec.clip_dim, spec.num_layers))
+    params.update(init_background(spec, generator, device))
     return params
 
 
 def initialize_palette(params: Params, spec: PaletteSpec, color_list=None,
                        hist_weights=None) -> Params:
     """Set the basis colors (and their frozen origin) and the optional hist-weight
-    volume (palette/renderer.py:248-268). Returns an updated shallow copy; the new
-    leaves are on the device of ``basis_color`` and need no gradient yet."""
+    volume (palette/renderer.py:248-268); with ``color_space="linear"`` the colors go
+    through ``srgb_to_linear`` first. Returns an updated shallow copy; the new leaves are
+    on the device of ``basis_color`` and need no gradient yet."""
     params = dict(params)
     dev = params["basis_color"].device
     if color_list is not None:
         bc = torch.as_tensor(np.asarray(color_list, np.float32), device=dev)
+        if spec.color_space == "linear":
+            bc = srgb_to_linear(bc)
         params["basis_color"] = bc
         params["basis_color_origin"] = bc.clone()
     if hist_weights is not None:
@@ -207,6 +211,12 @@ def palette_forward(params: Params, spec: PaletteSpec, x: torch.Tensor, d: torch
     omega, offsets_radiance, view_dep, diffuse = palette_color(
         params, spec, x, d, dens["geo_feat"], training, rand)
     return sigma, clip_feat, omega, offsets_radiance, view_dep, diffuse
+
+
+def palette_background(params: Params, spec: PaletteSpec, sph: torch.Tensor,
+                       d: torch.Tensor) -> torch.Tensor:
+    """The background net, as the NeRF's (``models.nerf.nerf_background``)."""
+    return nerf_background(params, spec, sph, d)
 
 
 def get_palette_weight_with_hist(rgb: torch.Tensor, hist_weights: torch.Tensor) -> torch.Tensor:

@@ -19,13 +19,17 @@ The eval, palette, serve and edit parts default to the workspaces ``chip_smoke.p
 (full width), so run it first. ``--O2`` trains (train, palette) with ``-O2`` in place of
 ``-O``: the stochastic trilerp, the nearest-corner / drawn-row backward and 8 of 16
 levels scattered per step. The opt-in render flags ``--march_groups``,
-``--eval_fine_grid``, ``--eval_compact_frac`` and ``--train_compact_frac`` are passed on
-to the trainers of the train, eval, palette and edit parts.
+``--eval_fine_grid``, ``--eval_compact_frac`` and ``--train_compact_frac`` and the model
+flags ``--bg_radius``, ``--patch_size``, ``--lambda_lpips`` and ``--color_space`` are
+passed on to the trainers of the train, eval, palette and edit parts (``--only train
+--bg_radius 32 --patch_size 16 --lambda_lpips 0.1``: the background net and the patch
+loss's share of a host-sampled step).
 
     python -m palettenerf_torch.profile_main_path [--steps_warmup 100] [--O2]
         [--only train|eval|palette|serve|edit] [--serve_ckpt PATH] [--palette_ws DIR]
         [--nerf_ws DIR] [--march_groups G] [--eval_fine_grid F] [--eval_compact_frac f]
-        [--train_compact_frac f]
+        [--train_compact_frac f] [--bg_radius R] [--patch_size N] [--lambda_lpips L]
+        [--color_space linear]
 
 Prints, for each window, the wall time, the summed device time of all kernels and its
 share of the wall time (busy share; one stream, so kernels do not overlap), the number
@@ -76,18 +80,22 @@ def _profile(what: str, fn, top: int = 15):
               f"device time per launch ({own[0].name[:60]})")
 
 
-RENDER_FLAGS = ("march_groups", "eval_fine_grid", "eval_compact_frac", "train_compact_frac")
+# the flags passed on to the trainers, with their types
+TRAINER_FLAGS = {"march_groups": int, "eval_fine_grid": int, "eval_compact_frac": float,
+                "train_compact_frac": float, "bg_radius": float, "patch_size": int,
+                "lambda_lpips": float, "color_space": str}
 
 
-def _render_args(a) -> list:
-    """The render flags that were given, as CLI arguments."""
-    return [x for f in RENDER_FLAGS if getattr(a, f) is not None
+def _trainer_args(a) -> list:
+    """The trainer flags that were given, as CLI arguments (after ARGS: a given
+    ``--bg_radius`` wins over its 0 there)."""
+    return [x for f in TRAINER_FLAGS if getattr(a, f) is not None
             for x in (f"--{f}", str(getattr(a, f)))]
 
 
 def _args(a):
     """The proc_toys flags, with -O2 in place of -O under ``--O2``, and the render flags."""
-    return [("-O2" if a.O2 and v == "-O" else v) for v in ARGS] + _render_args(a)
+    return [("-O2" if a.O2 and v == "-O" else v) for v in ARGS] + _trainer_args(a)
 
 
 def _profile_flags(cfg) -> dict:
@@ -128,7 +136,7 @@ def profile_eval(a):
     torch.cuda.synchronize()
     print(f"warm-up eval frame {time.perf_counter() - t0:.3f} s"
           + (f", fine bake {tr.fine_bake_stats}" if cfg.eval_fine_grid else ""))
-    flags = " ".join(_render_args(a)) or "flat"
+    flags = " ".join(_trainer_args(a)) or "flat"
     _profile(f"eval frame {data['W']}x{data['H']} ({flags})", lambda: tr.eval_step_full(data))
     if tr.last_compact_overflow is not None:
         print(f"   compact overflow {tr.last_compact_overflow} samples")
@@ -148,7 +156,8 @@ def profile_palette(a):
     argv = [ARGS[0], a.nerf_ws] + _args(a)[1:] + ["--use_initialization_from_rgbxy",
                                                    "--dt_gamma", "0", "--num_basis", str(P)]
     cfg = Config.from_args(main_palette.build_parser().parse_args(argv))
-    spec = PaletteSpec.build(bound=cfg.bound, num_basis=P, **_profile_flags(cfg))
+    spec = PaletteSpec.build(bound=cfg.bound, num_basis=P, bg_radius=cfg.bg_radius,
+                             color_space=cfg.color_space, **_profile_flags(cfg))
     tr = PaletteTrainer("palette", cfg, spec, workspace=a.palette_ws, use_checkpoint="latest",
                         nerf_path=None, mute=True, device="cuda")
     if tr.global_step == 0:
@@ -198,7 +207,7 @@ def profile_edit(a):
     from .gui import EditingSession
 
     version = os.path.basename(a.palette_ws).split("_")[-1]
-    argv = [ARGS[0], a.nerf_ws] + ARGS[1:] + _render_args(a) + [
+    argv = [ARGS[0], a.nerf_ws] + ARGS[1:] + _trainer_args(a) + [
         "--use_normalized_palette", "--use_initialization_from_rgbxy", "--dt_gamma", "0",
         "--test", "--version_id", version]
     cfg, tr = main_palette.load_test_trainer(argv, device="cuda")
@@ -228,9 +237,8 @@ def main(argv=None):
     p.add_argument("--only", choices=["train", "eval", "palette", "serve", "edit"],
                    default=None)
     p.add_argument("--O2", action="store_true", help="train and palette with -O2")
-    for f in RENDER_FLAGS:
-        p.add_argument(f"--{f}", type=int if f in ("march_groups", "eval_fine_grid")
-                       else float, default=None, help="passed on to the trainers")
+    for f, kind in TRAINER_FLAGS.items():
+        p.add_argument(f"--{f}", type=kind, default=None, help="passed on to the trainers")
     pal_ws = os.path.join(_ROOT, "results_palette", "chip_smoke", "version_1")
     p.add_argument("--serve_ckpt", default=pal_ws,
                    help="palette checkpoint or directory to serve")

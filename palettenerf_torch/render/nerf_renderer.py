@@ -16,8 +16,13 @@ hierarchical march (``_sup`` derives its supercell mip from the bitfield),
 ``fine_grid_size`` expects the bitfield pair ``(train_bits, fine_bits)``, and
 ``compact_frac`` runs the network only on the march-valid samples, packed into a static
 budget (``forward_compact``): valid samples past the budget are dropped and counted in
-the output's ``compact_overflow`` [1], a device tensor. The background net is not
-ported.
+the output's ``compact_overflow`` [1], a device tensor.
+
+The background of every render is ``_resolve_bg``'s (JAX :132-139): with
+``bg_radius > 0`` the background net at the ray's exit from the background sphere, else
+the explicit colour, else white. ``render_nerf_uniform`` (:220-297) is the grid-free
+render of the reference's pure-PyTorch path (uniform samples, ``sample_pdf``
+upsampling); no product path calls it.
 """
 
 from __future__ import annotations
@@ -28,11 +33,12 @@ from typing import Optional
 
 import torch
 
-from ..models.nerf import NeRFSpec, Params, nerf_forward
+from ..models.nerf import NeRFSpec, Params, nerf_background, nerf_density, nerf_forward
 from ..ops.composite import composite_rays, composite_weights
 from ..ops.hashgrid_fast import EncodeRand
 from ..ops.march import build_super_bitfield, march_rays, super_bitfield_ok
-from ..ops.rays import near_far_from_aabb
+from ..ops.rays import near_far_from_aabb, sph_from_ray
+from ..ops.sampling import sample_pdf
 
 
 @dataclass(frozen=True)
@@ -46,6 +52,9 @@ class RenderSettings:
     density_scale: float = 1.0
     t_thresh: float = 1e-4
     min_near: float = 0.2
+    # radius of the background sphere (> 0: the background net colours what the rays
+    # leave behind)
+    bg_radius: float = -1.0
     # eval compaction schedule ((ray_divisor, samples), ...); round 0 has divisor 1.
     # Empty = one fixed-width pass.
     compaction_rounds: tuple = ()
@@ -131,9 +140,16 @@ def compact_overflow(valid: torch.Tensor, budget: int) -> torch.Tensor:
     return (valid.sum(dtype=torch.int32) - budget).clamp_min(0)[None]
 
 
-def _background(bg_color, device) -> torch.Tensor:
+def _resolve_bg(params: Params, spec, rays_o: torch.Tensor, rays_d: torch.Tensor, bg_color,
+                settings: RenderSettings) -> torch.Tensor:
+    """Background colour per ray: the background net of ``spec`` (a NeRFSpec or
+    PaletteSpec) with ``bg_radius > 0`` ([N, 3]), else ``bg_color``, else white [3]
+    (JAX :132-139, renderer.py:274-279)."""
+    if settings.bg_radius > 0:
+        sph = sph_from_ray(rays_o, rays_d, settings.bg_radius)
+        return nerf_background(params, spec, sph, rays_d)
     if bg_color is None:
-        return torch.ones((3,), dtype=torch.float32, device=device)
+        return torch.ones((3,), dtype=torch.float32, device=rays_o.device)
     return bg_color
 
 
@@ -160,7 +176,7 @@ def render_nerf_train(
     n = rays_o.shape[0]
     nears, fars = near_far_from_aabb(rays_o, rays_d, _aabb(settings, rays_o.device),
                                      settings.min_near)
-    bg = _background(bg_color, rays_o.device)
+    bg = _resolve_bg(params, spec, rays_o, rays_d, bg_color, settings)
     m = _march(rays_o, rays_d, nears, fars, bitfield, settings, settings.num_samples, noise)
     dirs = rays_d[:, None, :].expand_as(m.xyzs).reshape(-1, 3)
     x = m.xyzs.reshape(-1, 3)
@@ -220,7 +236,7 @@ def render_nerf_eval_compact(
     n = rays_o.shape[0]
     device = rays_o.device
     nears, fars = near_far_from_aabb(rays_o, rays_d, _aabb(settings, device), settings.min_near)
-    bg = _background(bg_color, device)
+    bg = _resolve_bg(params, spec, rays_o, rays_d, bg_color, settings)
     m = _march(rays_o, rays_d, nears, fars, bitfield, settings, sum(s for _, s in rounds))
 
     image = torch.zeros((n, 3), dtype=torch.float32, device=device)
@@ -311,7 +327,7 @@ def render_nerf_eval(
     n = rays_o.shape[0]
     nears, fars = near_far_from_aabb(rays_o, rays_d, _aabb(settings, rays_o.device),
                                      settings.min_near)
-    bg = _background(bg_color, rays_o.device)
+    bg = _resolve_bg(params, spec, rays_o, rays_d, bg_color, settings)
     m = _march(rays_o, rays_d, nears, fars, bitfield, settings, settings.num_samples)
     dirs = rays_d[:, None, :].expand_as(m.xyzs)
     sigmas, rgbs = _eval_forward(params, spec, settings, m.xyzs, dirs, m.mask)
@@ -327,3 +343,78 @@ def render_nerf_eval(
         out["compact_overflow"] = compact_overflow(
             m.mask.reshape(-1), _compact_budget(settings, m.mask.numel()))
     return out
+
+
+def _alpha_weights(z_vals: torch.Tensor, sample_dist: torch.Tensor, sigmas: torch.Tensor,
+                   density_scale: float) -> torch.Tensor:
+    """Compositing weights of samples at z_vals [N, T] (the last one's interval
+    ``sample_dist``), in the reference's alphas-shifted form (renderer.py:209-211)."""
+    deltas = torch.diff(z_vals, dim=-1)
+    deltas = torch.cat([deltas, sample_dist * torch.ones_like(deltas[..., :1])], -1)
+    alphas = 1.0 - torch.exp(-deltas * density_scale * sigmas)
+    shifted = torch.cat([torch.ones_like(alphas[..., :1]), 1 - alphas + 1e-15], -1)
+    return alphas * torch.cumprod(shifted, -1)[..., :-1]
+
+
+def render_nerf_uniform(
+    params: Params,
+    spec: NeRFSpec,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    settings: RenderSettings,
+    num_steps: int = 128,
+    upsample_steps: int = 128,
+    bg_color: Optional[torch.Tensor] = None,
+    jitter: Optional[torch.Tensor] = None,
+    pdf_u: Optional[torch.Tensor] = None,
+):
+    """Grid-free render of the reference's pure-PyTorch ``run()`` (nerf/renderer.py:
+    127-255; JAX :220-297): ``num_steps`` uniform samples in [near, far], a density pass
+    without gradient that drives ``sample_pdf`` to ``upsample_steps`` more, merged and
+    sorted, then the alphas-shifted composite; depth is the normalised z.
+
+    ``jitter`` [N, num_steps] in [0, 1) perturbs the uniform samples by (u - 0.5) times
+    their spacing, and ``pdf_u`` [N, upsample_steps] are the upsampler's uniforms (the
+    JAX ``perturb`` path draws both); without ``pdf_u`` the upsampler is deterministic.
+    Returns dict(image [N, 3], depth [N], weights_sum [N]).
+    """
+    n = rays_o.shape[0]
+    b = settings.bound
+    nears, fars = near_far_from_aabb(rays_o, rays_d, _aabb(settings, rays_o.device),
+                                     settings.min_near)
+    nears_, fars_ = nears[:, None], fars[:, None]
+    z = torch.linspace(0.0, 1.0, num_steps, device=rays_o.device)[None, :]
+    z_vals = nears_ + (fars_ - nears_) * z
+    sample_dist = (fars_ - nears_) / num_steps
+    if jitter is not None:
+        z_vals = z_vals + (jitter - 0.5) * sample_dist
+
+    def clip_pts(zv):
+        return (rays_o[:, None, :] + rays_d[:, None, :] * zv[..., None]).clamp(-b, b)
+
+    xyzs = clip_pts(z_vals)
+    sigmas = nerf_density(params, spec, xyzs.reshape(-1, 3))["sigma"].reshape(n, num_steps)
+    total = num_steps
+    if upsample_steps > 0:
+        with torch.no_grad():
+            weights = _alpha_weights(z_vals, sample_dist, sigmas, settings.density_scale)
+            z_mid = z_vals[..., :-1] + 0.5 * torch.diff(z_vals, dim=-1)
+            new_z = sample_pdf(z_mid, weights[:, 1:-1], upsample_steps, u=pdf_u,
+                               det=pdf_u is None)
+        z_vals = torch.sort(torch.cat([z_vals, new_z], -1), -1).values
+        xyzs = clip_pts(z_vals)
+        total = num_steps + upsample_steps
+        sigmas = nerf_density(params, spec, xyzs.reshape(-1, 3))["sigma"].reshape(n, total)
+
+    weights = _alpha_weights(z_vals, sample_dist, sigmas, settings.density_scale)
+    dirs = rays_d[:, None, :].expand_as(xyzs)
+    _, rgbs = nerf_forward(params, spec, xyzs.reshape(-1, 3), dirs.reshape(-1, 3))
+    rgbs = rgbs.reshape(n, total, 3)
+
+    ws = weights.sum(-1)
+    ori_z = ((z_vals - nears_) / (fars_ - nears_)).clamp(0, 1)
+    depth = (weights * ori_z).sum(-1)
+    image = torch.einsum("ns,nsc->nc", weights, rgbs)
+    bg = _resolve_bg(params, spec, rays_o, rays_d, bg_color, settings)
+    image = image + (1.0 - ws)[:, None] * bg
+    return {"image": image, "depth": depth, "weights_sum": ws}

@@ -38,7 +38,7 @@ from ..ops.composite import composite_channels, composite_weights
 from ..ops.hashgrid_fast import EncodeRand
 from ..ops.rays import near_far_from_aabb
 from ..utils.color import hsv_to_rgb, rgb_to_hsv
-from .nerf_renderer import (RenderSettings, _aabb, _background, _compact_budget, _march,
+from .nerf_renderer import (RenderSettings, _aabb, _compact_budget, _march, _resolve_bg,
                             compact_overflow, forward_compact)
 
 
@@ -219,7 +219,7 @@ def render_palette_train(
     b = settings.bound
     dev = rays_o.device
     nears, fars = near_far_from_aabb(rays_o, rays_d, _aabb(settings, dev), settings.min_near)
-    bg = _background(bg_color, dev)
+    bg = _resolve_bg(params, spec, rays_o, rays_d, bg_color, settings)
     m = _march(rays_o, rays_d, nears, fars, bitfield, settings, settings.num_samples, noise)
     S = settings.num_samples
     x = m.xyzs.reshape(-1, 3)
@@ -341,7 +341,7 @@ def render_palette_eval(
     P = spec.num_basis
     dev = rays_o.device
     nears, fars = near_far_from_aabb(rays_o, rays_d, _aabb(settings, dev), settings.min_near)
-    bg = _background(bg_color, dev)
+    bg = _resolve_bg(params, spec, rays_o, rays_d, bg_color, settings)
     m = _march(rays_o, rays_d, nears, fars, bitfield, settings, settings.num_samples)
     S = settings.num_samples
     x_all = m.xyzs.reshape(-1, 3)

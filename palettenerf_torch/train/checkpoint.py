@@ -67,14 +67,25 @@ def _layers_to(layers: list, device) -> list:
 def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
     """JAX NeRF parameter tree -> the port's parameter dict (f32 tensors on ``device``).
 
-    Reads ``encoder``, ``sigma_net`` and ``color_net``; other entries (palette heads,
-    extra encoders) are ignored. Raises KeyError when one of the three is missing.
+    Reads ``encoder``, ``sigma_net`` and ``color_net``, and the background net
+    (``encoder_bg``, ``bg_net``) when present; other entries (palette heads, extra
+    encoders) are ignored. Raises KeyError when one of the three is missing.
     """
-    return {
+    out = {
         "encoder": _leaf_to_tensor(tree["encoder"]).to(device),
         "sigma_net": [w.to(device) for w in _mlp_from_jax(tree["sigma_net"])],
         "color_net": [w.to(device) for w in _mlp_from_jax(tree["color_net"])],
     }
+    out.update(_background_from_jax(tree, device))
+    return out
+
+
+def _background_from_jax(tree: Dict[str, Any], device) -> Dict[str, Any]:
+    """``encoder_bg`` and ``bg_net`` of a JAX tree that has a background net, else {}."""
+    if "encoder_bg" not in tree:
+        return {}
+    return {"encoder_bg": _leaf_to_tensor(tree["encoder_bg"]).to(device),
+            "bg_net": _layers_to(_mlp_from_jax(tree["bg_net"]), device)}
 
 
 _PALETTE_MLPS = ("sigma_net", "color_net", "diff_net", "basis_net", "omega_net")
@@ -85,7 +96,8 @@ def palette_params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any
 
     Reads the three hash tables (``encoder_clip`` and ``clip_net`` only when present),
     the bias-free MLPs, ``offsets_radiance_net`` (one layer with a bias), the palette
-    ``basis_color`` / ``basis_color_origin`` and, when present, ``hist_weights``.
+    ``basis_color`` / ``basis_color_origin`` and, when present, ``hist_weights`` and the
+    background net (``encoder_bg``, ``bg_net``).
     Raises KeyError when a required entry is missing.
     """
     out: Dict[str, Any] = {
@@ -103,6 +115,7 @@ def palette_params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any
             out[name] = _leaf_to_tensor(tree[name]).to(device)
     if "clip_net" in tree:
         out["clip_net"] = _layers_to(_mlp_from_jax(tree["clip_net"]), device)
+    out.update(_background_from_jax(tree, device))
     return out
 
 
@@ -171,7 +184,8 @@ def merge_params_non_strict(target, source) -> tuple:
     """Copy source leaves into target wherever the (path, shape) matches.
 
     The counterpart of torch's ``load_state_dict(strict=False)``, used for the NeRF ->
-    Palette warm start (``palettenerf_tpu/train/checkpoint.py:71-106``). Trees are dicts
+    Palette warm start (``palettenerf_tpu/train/checkpoint.py:71-106``): the sigma and
+    color nets, and the background net where both models have one. Trees are dicts
     and lists of tensors (or numpy arrays, which become f32 tensors); a merged leaf is a
     copy on the target leaf's device. Returns (merged, missing_paths, loaded_paths).
     """

@@ -1,9 +1,14 @@
-"""Evaluation metrics: PSNR, SSIM and the palette Sparsity / TV meters (NumPy).
+"""Evaluation metrics: PSNR, SSIM, LPIPS, the random-feature rLPIPS, and the palette
+Sparsity / TV meters.
 
-Port of ``palettenerf_tpu/train/metrics.py`` without the LPIPS meters. Meter API as the
-reference (``nerf/utils.py:220-330``): ``clear`` / ``update`` / ``measure`` / ``report``.
-SSIM is the standard Wang et al. windowed formulation (11x11 Gaussian, sigma 1.5,
-K1/K2 = 0.01/0.03). Palette-stage meters (``palette/utils.py:52-114``): SparsityMeter =
+Port of ``palettenerf_tpu/train/metrics.py``. Meter API as the reference
+(``nerf/utils.py:220-330``): ``clear`` / ``update`` / ``measure`` / ``report``. PSNR and
+SSIM are NumPy; SSIM is the standard Wang et al. windowed formulation (11x11 Gaussian,
+sigma 1.5, K1/K2 = 0.01/0.03). ``LPIPSMeter`` needs the pretrained ``lpips`` package and
+reports NaN without it, as the JAX meter does. ``rlpips_distance`` is the LPIPS recipe
+over an AlexNet-shaped stack of random convolutions (``make_rlpips_kernels``): the
+differentiable patch loss of the stage-1 trainer (``--patch_size > 1 --lambda_lpips``)
+and ``RLPIPSMeter``. Palette-stage meters (``palette/utils.py:52-114``): SparsityMeter =
 mean over foreground pixels of the L1/L2 ratio of the per-pixel basis weights; TVMeter =
 total variation of the basis accumulation maps x100. Both carry ``basis_metric = True``,
 so eval feeds them ``basis_acc`` (palette/utils.py:826-828).
@@ -11,7 +16,11 @@ so eval feeds them ``basis_acc`` (palette/utils.py:826-828).
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 
 def psnr(pred: np.ndarray, gt: np.ndarray) -> float:
@@ -83,6 +92,113 @@ class SSIMMeter(_MeterBase):
         else:
             self.V += ssim(p, t)
             self.N += 1
+
+
+class LPIPSMeter(_MeterBase):
+    """Perceptual metric of the pretrained ``lpips`` package (nerf/utils.py:256-290);
+    without that package it reports NaN rather than failing, as the JAX meter does."""
+
+    def __init__(self, net: str = "alex"):
+        super().__init__()
+        self.net = net
+        self.name = f"LPIPS ({net})"
+        try:
+            import lpips
+
+            self._fn = lpips.LPIPS(net=net).eval()
+        except Exception:
+            self._fn = None
+
+    def update(self, preds, truths):
+        if self._fn is None:
+            return  # measure() reports nan
+        p = torch.from_numpy(np.asarray(preds)).permute(0, 3, 1, 2).float()
+        g = torch.from_numpy(np.asarray(truths)).permute(0, 3, 1, 2).float()
+        with torch.no_grad():
+            self.V += float(self._fn(g, p, normalize=True).item())
+        self.N += 1
+
+    def measure(self) -> float:
+        if self._fn is None or self.N == 0:
+            return float("nan")
+        return super().measure()
+
+
+# AlexNet-shaped random feature pyramid: (out_channels, kernel, stride)
+_RLPIPS_TOPOLOGY = ((64, 11, 4), (192, 5, 2), (384, 3, 2), (256, 3, 2), (256, 3, 2))
+
+
+def make_rlpips_kernels(seed: int = 0, device="cpu"):
+    """The random conv stack of ``rlpips_distance``: per stage (w [O, I, k, k], b [O]),
+    He-init weights and 0.2 N(0, 1) biases (the biases make the stack affine, so the
+    per-pixel unit normalisation does not cancel global contrast changes). Drawn on the
+    host from a ``torch.Generator`` seeded with ``seed``, then moved to ``device``, so
+    every device gets the same stack. The JAX package draws its own from ``jax.random``:
+    scores compare across runs of the port only."""
+    gen = torch.Generator().manual_seed(seed)
+    kernels, c_in = [], 3
+    for c_out, k, _s in _RLPIPS_TOPOLOGY:
+        w = torch.randn((c_out, c_in, k, k), generator=gen) * math.sqrt(2.0 / (c_in * k * k))
+        b = torch.randn((c_out,), generator=gen) * 0.2
+        kernels.append((w.to(device), b.to(device)))
+        c_in = c_out
+    return kernels
+
+
+def _same_pad(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
+    """Pad NCHW x as XLA's "SAME" for kernel k at stride s: ceil(size / s) outputs, the
+    total padding split with the smaller half before (asymmetric at stride > 1)."""
+    pads = []
+    for size in (x.shape[-1], x.shape[-2]):  # F.pad takes the last dimension first
+        total = max((-(-size // s) - 1) * s + k - size, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads)
+
+
+def rlpips_distance(kernels, p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Differentiable random-feature perceptual distance of p, g [B, H, W, 3] in [0, 1]:
+    per conv stage, each pixel's channel vector unit-normalised, the squared difference
+    summed over channels and averaged over pixels; summed over stages, averaged over the
+    batch. ``kernels``: ``make_rlpips_kernels``'s (or arrays of the same shapes)."""
+    ks = [(torch.as_tensor(w, device=p.device), torch.as_tensor(b, device=p.device))
+          for w, b in kernels]
+
+    def feats(x):
+        h = x.permute(0, 3, 1, 2) * 2.0 - 1.0  # NCHW in [-1, 1]
+        out = []
+        for (w, b), (_c, k, s) in zip(ks, _RLPIPS_TOPOLOGY):
+            h = torch.relu(F.conv2d(_same_pad(h, k, s), w, stride=s) + b[None, :, None, None])
+            out.append(h)
+        return out
+
+    total = 0.0
+    for fp, fg in zip(feats(p), feats(g)):
+        fp = fp / (torch.linalg.vector_norm(fp, dim=1, keepdim=True) + 1e-10)
+        fg = fg / (torch.linalg.vector_norm(fg, dim=1, keepdim=True) + 1e-10)
+        total = total + ((fp - fg) ** 2).sum(1).mean((-2, -1))
+    return total.mean()
+
+
+class RLPIPSMeter(_MeterBase):
+    """``rlpips_distance`` with the stack of ``make_rlpips_kernels(seed)`` as a meter, on
+    ``device``: a proxy of LPIPS that needs no pretrained weights (random-feature
+    perceptual distances, Amir & Weiss 2021). Its scores compare with its own only."""
+
+    name = "rLPIPS"
+
+    def __init__(self, seed: int = 0, device="cpu"):
+        super().__init__()
+        self.device = torch.device(device)
+        self._kernels = make_rlpips_kernels(seed, self.device)
+
+    def update(self, preds, truths):
+        p = torch.as_tensor(np.asarray(preds, np.float32), device=self.device)
+        g = torch.as_tensor(np.asarray(truths, np.float32), device=self.device)
+        if p.ndim == 3:
+            p, g = p[None], g[None]
+        with torch.no_grad():
+            self.V += float(rlpips_distance(self._kernels, p, g))
+        self.N += 1
 
 
 class SparsityMeter(_MeterBase):

@@ -17,7 +17,11 @@ Port of ``palettenerf_tpu/train/palette_trainer.py`` (reference ``PaletteTrainer
   after ``max_freeze_palette_epoch``; the smooth loss starts after
   ``smooth_loss_start_epoch``. A resumed run re-derives them from its epoch.
 - epochs as the stage-1 trainer's: device-sampled pixels, or with ``--random_size`` /
-  ``--error_map`` host-collated batches with the error map's update (:433-460).
+  ``--error_map`` / ``--patch_size`` host-collated batches with the error map's update
+  (:433-460); patches have no loss term of their own in this stage, as in JAX.
+- the ground truth as the stage-1 trainer takes it: the straight RGB of RGBA images with
+  the background net (which the warm start copies from stage 1 and this stage trains),
+  in linear space with ``--color_space linear`` (:138-140, :479-480, :623-624).
 - the opt-in render options as in the stage-1 trainer; the ``--eval_fine_grid`` bake
   queries the palette field's density (:304), which this stage never moves, so it is
   dropped only when the parameters are replaced (:336, :653).
@@ -54,7 +58,7 @@ from ..ops.occupancy import GridState
 from ..render.palette_renderer import (RegionEdit, StylizerParams, render_palette_eval,
                                        render_palette_train)
 from . import checkpoint as ckpt_lib
-from .trainer import Trainer
+from .trainer import Trainer, eval_gt, gt_to_color_space
 
 
 def patch_smooth_term(out: dict, inds: torch.Tensor, width: int,
@@ -114,6 +118,7 @@ class PaletteTrainer(Trainer):
             max_keep_ckpt=max_keep_ckpt, mute=mute, device=device,
         )
         self.grid_frozen = True  # stage 1's grid, never refreshed (palette/utils.py:644-646)
+        self._rlpips_kernels = None  # patches take no LPIPS term in this stage
         # warm-start from stage 1 only on fresh runs: resuming a palette checkpoint must
         # not stomp the palette-trained color head with stage-1 weights
         if nerf_path is not None and self.global_step == 0:
@@ -156,6 +161,7 @@ class PaletteTrainer(Trainer):
         patch = smooth and opt.random_size > 0 and opt.lambda_patchsmooth > 0
         if patch and (inds is None or width is None):
             raise ValueError("the patch-smooth term needs the batch's pixel indices and width")
+        images = gt_to_color_space(opt, images)
         if images.shape[-1] == 4 and spec.bg_radius <= 0:
             if bg is None:
                 bg = torch.rand((n, 3), generator=self.generator, device=dev)
@@ -296,9 +302,7 @@ class PaletteTrainer(Trainer):
             pred = out["image"]
             img = data.get("images")
             if img is not None:
-                gt = img[..., :3]
-                if img.shape[-1] == 4:
-                    gt = img[..., :3] * img[..., 3:] + 1.0 * (1 - img[..., 3:])
+                gt = eval_gt(self.opt, img)
                 total_loss += float(((pred - gt) ** 2).mean())
                 n += 1
                 for m in self.metrics:
@@ -420,10 +424,7 @@ class PaletteTrainer(Trainer):
                 out = nerf_trainer.eval_step_full(data)
                 w = out["weights_sum"].reshape(-1)
                 depth_o = out.get("depth_origin", out["depth"]).reshape(-1)
-            gt = data["images"][..., :3].reshape(-1, 3)
-            if data["images"].shape[-1] == 4:
-                a = data["images"][..., 3:].reshape(-1, 1)
-                gt = gt * a + 1.0 * (1 - a)
+            gt = eval_gt(self.opt, data["images"]).reshape(-1, 3)
             valid = w > 0.5
             norm = gt[valid] + np.float32(0.05)
             all_norm.append(norm / np.linalg.norm(norm, axis=-1, keepdims=True))

@@ -6,15 +6,20 @@ Port of the ``-O`` path of ``palettenerf_tpu/train/trainer.py``:
   ``lr * 0.1**min(k/iters, 1)``: optax evaluates its schedule on the count of
   updates already made, so the first update uses ``lr`` itself (:138-141).
 - EMA of the parameters with decay 0.95 after every update.
-- Loss: MSE against the gt composited on a random per-ray background (RGBA data),
-  plus ``lambda_sparse * rgb_norm`` (:186-205; ``patch_size == 1`` only).
+- Loss: MSE against the gt composited on a random per-ray background (RGBA data; with
+  the background net, ``bg_radius > 0``, or ``--no_bg`` the straight RGB), plus
+  ``lambda_sparse * rgb_norm`` (:172-205); with ``--patch_size > 1 --lambda_lpips`` the
+  random-feature LPIPS of the batch's pixel patches (``metrics.rlpips_distance``,
+  :194-204, its conv stack made once per trainer on its device). With ``--color_space
+  linear`` the gt goes to linear space in every step and every eval (:177-178,
+  :546-547); renders stay linear.
 - Density-grid refresh every ``update_extra_interval`` steps: full below
   ``grid_update_warmup``, then a rotating 1/4 slab (:378-384); never-seen cells are
   marked at the start of training (:442-446).
 - Training runs on device-resident images with pixels sampled and rays generated on
   the device (the counterpart of ``scan_steps`` :281-320, as a Python loop), except
   where the JAX trainer takes its host-sampled epoch (``supports_fast_path`` false,
-  :322-330): with ``--error_map`` or ``--random_size`` the batches come from
+  :322-330): with ``--error_map``, ``--random_size`` or ``--patch_size`` the batches come from
   ``train_ds.iter_epoch()`` on the host, and the error map is updated after each step
   (:462-490).
 - ``-O2`` (``--fast_grad --stochastic_trilerp --grad_levels 8``) and ``--gridtype
@@ -33,7 +38,7 @@ Port of the ``-O`` path of ``palettenerf_tpu/train/trainer.py``:
 
 All randomness comes from one ``torch.Generator`` on the trainer's device, seeded
 with ``opt.seed`` (the host samplers of ``iter_epoch`` use the dataset's own NumPy
-generator). Options of the JAX trainer that are not ported yet raise.
+generator). Options of the JAX trainer that are not ported yet (``check_ported``) raise.
 """
 
 from __future__ import annotations
@@ -59,19 +64,16 @@ from ..ops.occupancy import (GridState, bake_fine_bitfield, init_grid_state,
 from ..ops.scatter import check_refused
 from ..render.nerf_renderer import (RenderSettings, render_nerf_eval, render_nerf_train,
                                     train_rows)
+from ..utils.color import srgb_to_linear
 from . import checkpoint as ckpt_lib
-from .metrics import PSNRMeter
+from .metrics import PSNRMeter, make_rlpips_kernels, rlpips_distance
 
 _DENSITY_CHUNK = 1 << 18  # grid points per density query during a refresh
 
 
 def check_ported(opt: Config) -> None:
     """Raise for options whose code paths are not ported yet."""
-    unported = {
-        "bg_radius > 0": opt.bg_radius > 0, "patch_size > 1": opt.patch_size > 1,
-        "color_space=linear": opt.color_space == "linear",
-        "n_devices > 1": opt.n_devices > 1, "rand_pose": opt.rand_pose >= 0,
-    }
+    unported = {"n_devices > 1": opt.n_devices > 1, "rand_pose": opt.rand_pose >= 0}
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(f"not ported to palettenerf_torch yet: {', '.join(bad)}")
@@ -91,6 +93,25 @@ def _copy_params(params, device):
 
 def spec_cascade(spec: NeRFSpec) -> int:
     return 1 + max(0, math.ceil(math.log2(spec.bound)))
+
+
+def gt_to_color_space(opt: Config, img: torch.Tensor) -> torch.Tensor:
+    """Images [..., C] with their rgb in ``opt.color_space``: with "linear" the first three
+    channels go through ``srgb_to_linear``, alpha stays."""
+    if opt.color_space != "linear":
+        return img
+    return torch.cat([srgb_to_linear(img[..., :3]), img[..., 3:]], -1)
+
+
+def eval_gt(opt: Config, img: np.ndarray) -> np.ndarray:
+    """The ground truth of an eval image [H, W, C] (host): RGBA composited on white, in
+    ``opt.color_space`` (JAX trainer.py:541-547)."""
+    gt = img[..., :3]
+    if img.shape[-1] == 4:
+        gt = img[..., :3] * img[..., 3:] + 1.0 * (1 - img[..., 3:])
+    if opt.color_space == "linear":
+        gt = srgb_to_linear(torch.from_numpy(np.ascontiguousarray(gt))).numpy()
+    return gt
 
 
 class Trainer:
@@ -142,15 +163,15 @@ class Trainer:
             bound=spec.bound, cascade=cascade, grid_size=opt.grid_size,
             dt_gamma=opt.dt_gamma, max_steps=opt.max_steps,
             num_samples=opt.train_samples_per_ray, t_thresh=opt.t_thresh_train,
-            min_near=opt.min_near, march_groups=self._march_groups(),
-            compact_frac=opt.train_compact_frac,
+            min_near=opt.min_near, bg_radius=spec.bg_radius,
+            march_groups=self._march_groups(), compact_frac=opt.train_compact_frac,
         )
         s_inf = opt.infer_samples_per_ray
         self.eval_settings = RenderSettings(
             bound=spec.bound, cascade=cascade, grid_size=opt.grid_size,
             dt_gamma=opt.dt_gamma, max_steps=opt.max_steps,
             num_samples=s_inf, t_thresh=opt.t_thresh_infer, min_near=opt.min_near,
-            compaction_rounds=self._compaction_rounds(s_inf),
+            bg_radius=spec.bg_radius, compaction_rounds=self._compaction_rounds(s_inf),
             march_groups=self._march_groups(),
             compact_frac=opt.eval_compact_frac, fine_grid_size=int(opt.eval_fine_grid),
         )
@@ -158,6 +179,9 @@ class Trainer:
         self._overflow = None        # train renders' dropped samples, summed on the device
         self.last_compact_overflow = None  # the last eval frame's, with --eval_compact_frac
         self._dev_src = None
+        # the conv stack of the patch loss, made once (JAX :213-216)
+        self._rlpips_kernels = (make_rlpips_kernels(device=self.device)
+                                if opt.patch_size > 1 and opt.lambda_lpips > 0 else None)
 
         n_params = sum(p.numel() for p in param_leaves(self.params))
         self.log(f"[INFO] Trainer: {name} | {workspace} | {n_params} params | {self.device}")
@@ -241,9 +265,11 @@ class Trainer:
 
         ``bg`` [N, 3] (background for RGBA gt), ``noise`` [N] (march jitter) and, under
         ``-O2``, the encode draws ``enc_u`` / ``enc_lvls`` are drawn from the trainer's
-        generator, in this order, when None.
+        generator, in this order, when None. With the patch loss the batch is
+        ``patch_size``^2-ray patches in ``data/rays.py``'s order.
         """
         opt, n, dev = self.opt, rays_o.shape[0], self.device
+        images = gt_to_color_space(opt, images)
         c = images.shape[-1]
         if c == 4 and self.spec.bg_radius <= 0 and not opt.no_bg:
             if bg is None:
@@ -262,6 +288,11 @@ class Trainer:
         self._add_overflow(out)
         per_ray = ((out["image"] - gt) ** 2).mean(-1) + out["rgb_norm"] * opt.lambda_sparse
         loss = per_ray.mean()
+        if self._rlpips_kernels is not None:
+            ps = opt.patch_size
+            loss = loss + opt.lambda_lpips * rlpips_distance(
+                self._rlpips_kernels, out["image"].reshape(-1, ps, ps, 3),
+                gt.reshape(-1, ps, ps, 3))
 
         self._update(loss)
         return loss.detach(), per_ray.detach()
@@ -457,13 +488,12 @@ class Trainer:
             pred = self.eval_step_full(data)["image"]
             img = data.get("images")
             if img is not None:
-                gt = img[..., :3]
-                if img.shape[-1] == 4:
-                    gt = img[..., :3] * img[..., 3:] + 1.0 * (1 - img[..., 3:])
+                gt = eval_gt(self.opt, img)
                 total_loss += float(((pred - gt) ** 2).mean())
                 n += 1
                 for m in self.metrics:
-                    m.update(pred[None], gt[None])
+                    if not m.basis_metric:
+                        m.update(pred[None], gt[None])
             if save_images:
                 self._save_image(os.path.join(
                     self.workspace, "validation",

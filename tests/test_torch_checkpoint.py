@@ -104,8 +104,8 @@ def test_missing_ml_dtypes_gives_clear_error(tmp_path):
 def test_port_imports_nothing_of_jax():
     """Import every module of palettenerf_torch and chip_smoke in a fresh interpreter:
     jax, optax, palettenerf_tpu, cv2, ml_dtypes, sklearn and PIL stay out of sys.modules,
-    and the modules of the palette stages and of the editing path are among those
-    imported."""
+    and the modules of the palette stages, of the editing path and the leaf ops, and the
+    rLPIPS / LPIPS parts of the metrics, are among those imported."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import palettenerf_torch\n"
@@ -117,8 +117,12 @@ def test_port_imports_nothing_of_jax():
         "new = ['main_palette', 'train.palette_trainer', 'data.palette_provider',\n"
         "       'extraction.extract', 'extraction.histogram', 'extraction.geometry',\n"
         "       'extraction.hull', 'extraction.tan18', 'gui', 'gui.camera', 'gui.headless',\n"
-        "       'gui.dpg_gui', 'utils.mcubes']\n"
+        "       'gui.dpg_gui', 'utils.mcubes', 'ops.freq', 'ops.encoding', 'ops.losses',\n"
+        "       'ops.morton', 'ops.sampling', 'train.metrics']\n"
         "bad += [m for m in new if 'palettenerf_torch.' + m not in sys.modules]\n"
+        "metrics = sys.modules['palettenerf_torch.train.metrics']\n"
+        "bad += [a for a in ('make_rlpips_kernels', 'rlpips_distance', 'RLPIPSMeter',\n"
+        "                    'LPIPSMeter') if not hasattr(metrics, a)]\n"
         "n = len([m for m in sys.modules if m.startswith('palettenerf_torch.')])\n"
         "print('BAD', bad, 'N', n)\n"
     )
@@ -126,4 +130,4 @@ def test_port_imports_nothing_of_jax():
                          cwd=REPO, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD [] " in out.stdout, out.stdout
-    assert int(out.stdout.split("N")[-1]) >= 42
+    assert int(out.stdout.split("N")[-1]) >= 47

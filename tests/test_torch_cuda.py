@@ -332,6 +332,111 @@ def test_scatter_kernel_on_a_compacted_train_stream(cuda_device, tmp_path):
     assert _within(got, ref, scale, 1e-5)
 
 
+def test_bg_encoder_on_card_matches_cpu(cuda_device):
+    """The background net's 2D grid at full width (levels 16, 81, 407, 2048: three dense,
+    one hashed): features and the f32 table gradient (``index_add_``) on the card against
+    the CPU; the gradient within 1e-4 of its largest entry (f32 atomics)."""
+    from palettenerf_torch.models.nerf import background_grid
+
+    spec = background_grid(32.0)
+    gen = torch.Generator().manual_seed(9)
+    table = torch.empty((spec.total_params, 2)).uniform_(-1, 1, generator=gen)
+    x = torch.rand((1 << 16, 2), generator=gen)
+    cot = torch.randn((1 << 16, spec.output_dim), generator=gen)
+    out = []
+    for dev in ("cpu", cuda_device):
+        t = table.to(dev, copy=True).requires_grad_(True)
+        before = scatter.scatter_add.launches
+        f = hashgrid_fast.hashgrid_encode_fast(t, x.to(dev), spec)
+        (f * cot.to(dev)).sum().backward()
+        assert scatter.scatter_add.launches == before  # f32: no B1
+        out.append((f.detach().cpu(), t.grad.cpu()))
+    (f_c, g_c), (f_g, g_g) = out
+    torch.testing.assert_close(f_g, f_c, rtol=0, atol=1e-5)
+    assert float((g_c - g_g).abs().max()) <= 1e-4 * float(g_c.abs().max())
+
+
+def test_scatter_kernel_on_a_patch_stream(cuda_device, tmp_path, monkeypatch):
+    """``--bg_radius --patch_size 16 --lambda_lpips 0.1``: the train step on the card
+    against the CPU (loss, every gradient, the background net's included) with one B1
+    launch; then B1 against its plain version on the stream of that batch: 8 patches of
+    16x16 pixels, whose samples cluster in space, so rows repeat more than on a uniform
+    stream. TF32 is off for the patch loss's convolutions, as in ``chip_smoke.py``;
+    ``dt_gamma`` 0 places the samples bit for bit on both devices. The background net's
+    gradients are held in L2 within ``chip_smoke.py:BG_GRAD_L2_RTOL`` (3e-2):
+    ``sph_from_ray`` differs by ulps between the devices, which moves its samples at the
+    finest background level."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    import numpy as np
+
+    from palettenerf_torch.data.rays import gen_rays, sample_ray_indices
+    from palettenerf_torch.ops.rays import near_far_from_aabb
+    from palettenerf_torch.render.nerf_renderer import _aabb, _march
+
+    cfg = Config(O=True, fp16=True, bound=1.0, grid_size=32, num_rays=2048, max_steps=256,
+                 train_samples_per_ray=32, log2_hashmap_size=14, grid_levels=8, iters=100,
+                 bg_radius=32.0, patch_size=16, lambda_lpips=0.1, dt_gamma=0.0)
+    spec = NeRFSpec.build(bound=1.0, fp16=True, log2_hashmap_size=14, grid_levels=8,
+                          bg_radius=32.0)
+    gen = torch.Generator().manual_seed(4)
+    params = init_nerf(spec, gen)
+    params["encoder"].uniform_(-1, 1, generator=gen)
+    params["encoder_bg"].uniform_(-1, 1, generator=gen)
+    H = W = 64
+    inds, _ = sample_ray_indices(np.random.default_rng(4), H, W, cfg.num_rays,
+                                 patch_size=cfg.patch_size)
+    pose = np.eye(4, dtype=np.float32)
+    pose[2, 3] = -2.2  # the camera looks along +z, at the ball
+    o, d = (torch.from_numpy(np.ascontiguousarray(a)) for a in gen_rays(
+        pose, np.array([50.0, 50.0, 32.0, 32.0]), H, W, inds))
+    img, noise = torch.rand((cfg.num_rays, 4), generator=gen), torch.rand((cfg.num_rays,),
+                                                                          generator=gen)
+    c = (torch.arange(32) + 0.5) / 32 * 2 - 1
+    ball = (torch.stack(torch.meshgrid(c, c, c, indexing="ij"), -1) ** 2).sum(-1) < 0.4
+    bits = (ball.reshape(-1, 8).int() << torch.arange(8)).sum(-1).to(torch.uint8)
+    out = []
+    for dev in ("cpu", cuda_device):
+        tr = Trainer("t", cfg, spec, params={k: (v.clone() if torch.is_tensor(v)
+                                                 else [w.clone() for w in v])
+                                             for k, v in params.items()},
+                     workspace=str(tmp_path), use_checkpoint="scratch", mute=True, device=dev)
+        tr.grid_state = tr.grid_state._replace(bitfield=bits.to(dev))
+        before = scatter.scatter_add.launches
+        loss, _ = tr.train_step(o.to(tr.device), d.to(tr.device), img.to(tr.device),
+                                noise=noise.to(tr.device))
+        launched = scatter.scatter_add.launches - before
+        out.append((float(loss), [p.grad.cpu() for p in param_list(tr.params)], launched))
+    (loss_c, g_c, n_c), (loss_g, g_g, n_g) = out
+    assert (n_c, n_g) == (0, 1)
+    assert loss_g == pytest.approx(loss_c, rel=1e-5)
+    n_fg = len(param_list({k: params[k] for k in ("encoder", "sigma_net", "color_net")}))
+    for i, (a, b) in enumerate(zip(g_c, g_g)):
+        if i < n_fg:
+            tol = 1e-2 if i == 0 else 1e-4   # bf16 table updates; f32 elsewhere
+            rel = float((a - b).abs().max()) / float(a.abs().max())
+        else:
+            tol, rel = 3e-2, float((a - b).norm() / a.norm())
+        assert rel <= tol, (i, rel)
+
+    st = tr.train_settings
+    ro, rd = o.to(cuda_device), d.to(cuda_device)
+    nears, fars = near_far_from_aabb(ro, rd, _aabb(st, cuda_device), st.min_near)
+    m = _march(ro, rd, nears, fars, bits.to(cuda_device), st, st.num_samples,
+               noise.to(cuda_device))
+    idx = hashgrid_fast.corner_indices(spec.grid, (m.xyzs.reshape(-1, 3) + 1.0) / 2.0)[0]
+    idx = idx.reshape(-1).contiguous()
+    vals = torch.randn((idx.numel(), 2), device=cuda_device)
+    vals = (vals.view(-1, 64, 2) * m.mask.reshape(-1, 1, 1)).view(-1, 2).to(torch.bfloat16)
+    got = scatter.scatter_add(idx, vals, spec.grid.total_params, 64)
+    ref = scatter.scatter_add_reference(idx, vals, spec.grid.total_params)
+    scale = scatter.scatter_add_reference(idx, vals.abs(), spec.grid.total_params)
+    torch.cuda.synchronize()
+    scatter.check_refused()
+    assert float(m.mask.float().mean()) > 0.05
+    assert _within(got, ref, scale, 1e-5)
+
+
 PAL_KW = dict(bound=1.0, log2_hashmap_size=14, grid_levels=8)
 
 

@@ -314,7 +314,8 @@ def test_main_palette_end_to_end_on_cpu(tmp_path, monkeypatch):
 
     te = main_palette.main([scene, "results/sphere"] + COMMON + pal + [
         "--use_initialization_from_rgbxy", "--test"], device="cpu")
-    assert te.epoch == 3 and [m.name for m in te.metrics] == ["PSNR", "SSIM", "TV", "Sparsity"]
+    assert te.epoch == 3 and [m.name for m in te.metrics] == [
+        "PSNR", "SSIM", "LPIPS (alex)", "rLPIPS", "TV", "Sparsity"]
     assert te.stats["results"][-1] == pytest.approx(tr.stats["results"][-1], abs=1e-4)
     assert not (tmp_path / "results_palette" / "sphere" / "version_2").exists()
     # --gui reaches the DearPyGui front-end, which needs the dearpygui package

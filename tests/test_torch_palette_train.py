@@ -151,8 +151,14 @@ def test_init_and_initialize_palette_match():
         assert got[k].dtype == torch.float32
         _close(got[k], want[k], atol=0, rtol=1e-6, msg=k)
     assert "hist_weights" not in fresh and got["basis_color"] is not got["basis_color_origin"]
-    with pytest.raises(NotImplementedError):
-        tpal.PaletteSpec.build(color_space="linear")
+    # the linear colour space constructs and stores the palette in linear space
+    kw = dict(SPEC_KW, color_space="linear")
+    lin_t, lin_j = tpal.PaletteSpec.build(**kw), jpal.PaletteSpec.build(**kw)
+    got = tpal.initialize_palette(fresh, lin_t, BC, None)
+    want = jpal.initialize_palette(ref, lin_j, BC, None)
+    for k in ("basis_color", "basis_color_origin"):
+        _close(got[k], want[k], atol=0, rtol=1e-6, msg=k)
+    assert float(got["basis_color"][0, 1]) < 0.2 / 2  # 0.2 in sRGB is ~0.033 linear
 
 
 @pytest.mark.parametrize("x", [0.0, 1.0, 0.3, -0.2, 1.5])
@@ -379,6 +385,65 @@ def test_O_palette_step_matches_jax_trainer(tmp_path):
     assert float(moved) == pytest.approx(1e-2, rel=1e-3)
 
 
+def test_linear_palette_step_matches_jax_trainer(tmp_path):
+    """``--color_space linear``: the RGBA gt goes to linear space before it is composited
+    on the step's random background (and before the hist-weight lookup), the palette is
+    stored linear. Loss, per-ray loss, and the parameters after the update."""
+    kw = dict(SPEC_KW, color_space="linear")
+    jspec, tspec = jpal.PaletteSpec.build(**kw), tpal.PaletteSpec.build(**kw)
+    rng = np.random.default_rng(9)
+    hist = rng.uniform(size=(32, 32, 32, 4)).astype(np.float32)
+    jparams = jpal.initialize_palette(jpal.init_palette(jax.random.PRNGKey(9), jspec), jspec,
+                                      BC, hist / hist.sum(-1, keepdims=True))
+    for name in ("encoder", "encoder_palette"):
+        jparams[name] = jnp.asarray(rng.uniform(-2, 2, jparams[name].shape).astype(np.float32))
+    tparams = tckpt.palette_params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
+    cfg = dict(CFG_KW, fp16=False, O=False, color_space="linear")
+    n, S = cfg["num_rays"], cfg["train_samples_per_ray"]
+    o, d, bits = _scene(n, seed=9)
+    img = rng.uniform(size=(n, 4)).astype(np.float32)
+    img[: n // 3, 3] = 1.0
+    jtr = JPaletteTrainer("palette", JConfig(**cfg), jspec, params=jparams,
+                          workspace=str(tmp_path / "jax"), use_checkpoint="scratch", mute=True)
+    ttr = TPaletteTrainer("palette", TConfig(**cfg), tspec, params=tparams,
+                          workspace=str(tmp_path / "torch"), use_checkpoint="scratch",
+                          mute=True, device="cpu")
+    ttr.grid_state = ttr.grid_state._replace(bitfield=T(bits))
+    key = jax.random.PRNGKey(13)
+    bg, noise, _, _ = _step_draws(key, n, S)
+    new_j, _, _, loss_j, per_ray_j = jtr._train_step(
+        jtr.params, jtr.opt_state, jtr.ema_params, jnp.asarray(bits), key, jnp.asarray(o),
+        jnp.asarray(d), jnp.asarray(img), jnp.zeros((n, 16)), jnp.zeros((n,), jnp.int32),
+        jnp.float32(0.05), jnp.float32(0.0), jnp.int32(32), True, False)
+    loss_t, per_ray_t = ttr.train_step(T(o), T(d), T(img), bg=T(bg), noise=T(noise))
+    assert float(loss_t) == pytest.approx(float(loss_j), rel=1e-5)
+    _close(per_ray_t, per_ray_j)
+    for name, p, p_ref in _tree_pairs(ttr.params, new_j):
+        _close_params(name, p, p_ref, 1e-6)
+    # the same step in sRGB is another loss
+    srgb = TPaletteTrainer("palette", TConfig(**dict(cfg, color_space="srgb")), tspec,
+                           params=tparams, workspace=str(tmp_path / "srgb"),
+                           use_checkpoint="scratch", mute=True, device="cpu")
+    srgb.grid_state = ttr.grid_state
+    assert float(srgb.train_step(T(o), T(d), T(img), bg=T(bg), noise=T(noise))[0]) != float(loss_t)
+
+
+def test_eval_gt_in_linear_space_matches_jax():
+    """The eval / extraction ground truth: RGBA composited on white, then to linear space
+    with ``--color_space linear`` (JAX trainer.py:541-547, palette_trainer.py:619-624)."""
+    from palettenerf_torch.train.trainer import eval_gt
+    from palettenerf_tpu.utils.color import srgb_to_linear
+
+    img = np.random.default_rng(10).uniform(size=(6, 5, 4)).astype(np.float32)
+    img[0, :, 3] = 0.0
+    on_white = img[..., :3] * img[..., 3:] + 1.0 * (1 - img[..., 3:])
+    np.testing.assert_array_equal(eval_gt(TConfig(), img), on_white)
+    np.testing.assert_array_equal(eval_gt(TConfig(), img[..., :3]), img[..., :3])
+    got = eval_gt(TConfig(color_space="linear"), img)
+    _close(got, srgb_to_linear(jnp.asarray(on_white)), atol=1e-6)
+    assert got.dtype == np.float32
+
+
 def test_five_steps_across_the_unfreeze_match_jax_trainer(tmp_path):
     """Two steps with the colors frozen, three after the unfreeze, the same draws in both
     packages: every parameter after each step. ``basis_color`` must take its third
@@ -456,8 +521,14 @@ def test_initialize_palette_restarts_optimizer_and_schedule_count(tmp_path):
     assert torch.equal(ttr.params["basis_color"].detach(), T(BC[::-1]))
     assert torch.equal(ttr.ema_params["basis_color"], T(BC[::-1]))
     assert ttr.params["basis_color"].requires_grad and not ttr.params["hist_weights"].requires_grad
-    with pytest.raises(NotImplementedError, match="patch_size"):
-        TPaletteTrainer("palette", TConfig(**dict(CFG_KW, patch_size=2)), tspec,
+    # patches construct (host-sampled epochs, no LPIPS term in this stage); several
+    # devices still raise
+    patched = TPaletteTrainer("palette", TConfig(**dict(CFG_KW, patch_size=2, lambda_lpips=0.1)),
+                              tspec, workspace=str(tmp_path), use_checkpoint="scratch", mute=True,
+                              device="cpu")
+    assert patched.host_sampled() and patched._rlpips_kernels is None
+    with pytest.raises(NotImplementedError, match="n_devices"):
+        TPaletteTrainer("palette", TConfig(**dict(CFG_KW, n_devices=2)), tspec,
                         workspace=str(tmp_path), use_checkpoint="scratch", mute=True, device="cpu")
 
 

@@ -97,6 +97,43 @@ def test_O_train_step_matches_jax_trainer(tmp_path):
     assert float(moved) == pytest.approx(CFG_KW.get("lr", 1e-2), rel=1e-3)
 
 
+def test_linear_train_step_matches_jax_trainer(tmp_path):
+    """``--color_space linear``: the gt's rgb goes to linear space before the RGBA
+    composite on the step's random background. Loss, per-ray loss (atol 2e-5, the port's
+    render tolerance) and the parameters after the update (atol 1e-6; at most one entry
+    in 20 of a tensor off, none by more than 2 lr: an entry whose gradient is near zero
+    takes its sign from the gradient's last bits)."""
+    jspec, tspec = jnerf.NeRFSpec.build(**SPEC_KW), tnerf.NeRFSpec.build(**SPEC_KW)
+    jparams = jnerf.init_nerf(jax.random.PRNGKey(4), jspec)
+    jparams["encoder"] = jnp.asarray(np.random.default_rng(4).uniform(
+        -1, 1, jparams["encoder"].shape).astype(np.float32))
+    np_tree = jax.tree_util.tree_map(np.asarray, jparams)
+    cfg = dict(CFG_KW, O=False, fp16=False, color_space="linear")
+    n = cfg["num_rays"]
+    o, d, img, bits = _step_inputs(n)
+    jtr = JTrainer("ngp", JConfig(**cfg), jspec, params=jparams,
+                   workspace=str(tmp_path / "jax"), use_checkpoint="scratch", mute=True)
+    key = jax.random.PRNGKey(6)
+    k_bg, k_pt = jax.random.split(key)
+    bg = np.asarray(jax.random.uniform(k_bg, (n, 3)))
+    noise = np.asarray(jax.random.uniform(jax.random.split(k_pt)[0], (n,)))
+    new_j, _, _, loss_j, per_ray_j = jtr._train_step(
+        jtr.params, jtr.opt_state, jtr.ema_params, jnp.asarray(bits), key,
+        jnp.asarray(o), jnp.asarray(d), jnp.asarray(img))
+    ttr = TTrainer("ngp", TConfig(**cfg), tspec, params=params_from_jax(np_tree),
+                   workspace=str(tmp_path / "torch"), use_checkpoint="scratch", mute=True,
+                   device="cpu")
+    ttr.grid_state = ttr.grid_state._replace(bitfield=T(bits))
+    loss_t, per_ray_t = ttr.train_step(T(o), T(d), T(img), bg=T(bg), noise=T(noise))
+    assert float(loss_t) == pytest.approx(float(loss_j), rel=1e-5)
+    np.testing.assert_allclose(per_ray_t.numpy(), np.asarray(per_ray_j), rtol=0, atol=2e-5)
+    new_j = params_from_jax(jax.tree_util.tree_map(np.asarray, new_j))
+    for got, ref in zip(tnerf.param_list(ttr.params), tnerf.param_list(new_j)):
+        diff = (got.detach() - ref).abs()
+        assert int((diff > 1e-6).sum()) <= max(1, got.numel() // 20), float(diff.max())
+        assert float(diff.max()) <= 2e-2 + 1e-6
+
+
 @pytest.fixture(scope="module")
 def sphere_scene(tmp_path_factory):
     root = tmp_path_factory.mktemp("torch_sphere")
@@ -147,8 +184,18 @@ def test_main_nerf_cli_on_cpu(sphere_scene, tmp_path, monkeypatch):
                             f"ngp_{tr.epoch}.ply")
     assert np.abs(verts).max(initial=0.0) <= 1.0 and faces.max(initial=-1) < len(verts)
     # options of paths that are not ported yet still raise (-O2: test_torch_recipes.py)
-    with pytest.raises(NotImplementedError, match="patch_size"):
-        tmain.main(argv + ["--patch_size", "2"], device="cpu")
+    with pytest.raises(NotImplementedError, match="n_devices"):
+        tmain.main(argv + ["--n_devices", "2"], device="cpu")
+    with pytest.raises(NotImplementedError, match="rand_pose"):
+        tmain.main(argv + ["--rand_pose", "0"], device="cpu")
+    # the options this CLI runs since the background net, the patch loss and the linear
+    # colour space were ported construct their trainer (runs: test_torch_background.py)
+    cfg = _sphere_cfg(sphere_scene, bg_radius=4.0, patch_size=4, lambda_lpips=0.1,
+                      color_space="linear")
+    tr = TTrainer("ngp", cfg, tnerf.NeRFSpec.build(bound=1.0, bg_radius=4.0),
+                  workspace=str(tmp_path / "ported"), use_checkpoint="scratch", mute=True,
+                  device="cpu")
+    assert tr.host_sampled() and tr._rlpips_kernels is not None and "bg_net" in tr.params
 
 
 def test_main_nerf_cli_with_hierarchical_march_and_eval_compaction(sphere_scene, tmp_path,
