@@ -9,7 +9,8 @@ Phases (each raises on failure; the script then exits non-zero):
 
 1. device: prints the card's name and power limit (nvidia-smi); TF32 off.
 2. build: compiles every CUDA kernel from ``palettenerf_torch/csrc``, one ``nvcc``
-   per source, all started together.
+   per source, and the extraction's C++ library (``palettenerf_torch/native``) with
+   ``g++``, all started together.
 3. kernels: holds each kernel against its plain PyTorch version on the card, at the
    shapes its path gives it and at edge cases, and times kernel, plain version and the
    one PyTorch call that computes the same function. ``scatter_add`` is held and timed
@@ -24,6 +25,16 @@ Phases (each raises on failure; the script then exits non-zero):
    stream: the update stream one train batch gives ``scatter_add`` on the trained
    field (rays marched through the trained occupancy grid), on which the kernel is
    held against its plain version and timed again, with the stream's statistics.
+   Data parallel: the same configuration on the first 20 training views, 100 steps in two
+   gloo ranks sharing the card (``palettenerf_torch.parallel.spawn``) beside 100 steps in
+   this process with the same seed: the first step's loss (1e-5 relative), the first 20
+   steps' losses (2e-3), parameters, EMA and bitfield equal bit for bit across the ranks,
+   ``scatter_add`` launched once per step on each rank, and held against its plain
+   version and timed on the update stream rank 0's last step gave it; steps/s and peak
+   memory of both. On a machine with two cards or more, the same also in two nccl ranks,
+   one card each, and in one nccl rank per card. ``python3 chip_smoke.py --dp-only``
+   builds the kernels and runs this phase alone (on four cards: one process, two gloo
+   ranks on one card, two and four nccl ranks) and ends with its numbers as one JSON line.
    -O2 reference: the ``-O2`` encoder (4 levels, 2^13 rows, hash and hash_xadd) on the
    card against the CPU on the same points and draws: exact forward, corner draws and
    the forward where they agree, the table gradient of each backward mode (drawn row,
@@ -52,7 +63,10 @@ Phases (each raises on failure; the script then exits non-zero):
 the training views (``--extract_palette --extract_via_sweep``), then 300 palette training steps (three epochs, one per
    schedule phase: colors frozen, + smooth loss, + colors unfrozen) with the test-split
    evaluation and renders the CLI ends with; then the checks of what moved and what
-   did not, and one validation view.
+   did not, and one validation view. The extraction's time by phase (bake, sweep
+   renders, device-to-host moves, the host's rays and gathers, the host extraction in the
+   native kernels), and the host extraction again on the same inputs in NumPy: its
+   seconds, and the same palette and weights.
 8. serve reference: a small palette field baked and swept on the card and on the CPU
    from the same weights: bake channels within tolerance, frames by PSNR (plain and
    with a RegionEdit recolor).
@@ -104,8 +118,9 @@ the training views (``--extract_palette --extract_via_sweep``), then 300 palette
     CLI's test tail and one validation view; then a 16-step ``train_burst`` of an
     ``EditingSession`` on its ``--test`` trainer.
 
-Launch counts are zeroed just before each main path and read just after; every kernel
-of the train, palette and edit paths must have launched there (the serve path runs no
+Launch counts are zeroed just before each main path and read just after (the data-parallel
+ranks count in their own processes and report them); every kernel of the train, palette
+and edit paths must have launched there (the serve path runs no
 kernel of its own; on the edit path ``scatter_add`` launches in the training burst only).
 The line before the last carries the card's name and power limit; before it, one JSON
 line lists every kernel with its numbers. The last line is the result object.
@@ -250,6 +265,16 @@ OPTIONS_RENDER_ATOL = 1e-4  # card vs CPU palette eval render with the bg net: f
 # field fogs up early on this scene (PERF.md §6)
 BG_PATCH_PSNR_FLOOR = 10.5
 BG_LINEAR_PSNR_FLOOR = 12.0
+
+# ray data-parallel phase: two gloo ranks sharing cuda:0 beside one process, the -O
+# configuration at full width on the first DP_VIEWS training views (an epoch of DP_VIEWS
+# steps), DP_EPOCHS epochs
+DP_WORLD = 2
+DP_VIEWS = 20
+DP_EPOCHS = 5               # 100 steps: parameters, EMA and bitfield equal across ranks
+DP_FIRST_RTOL = 1e-5        # the first step's loss: the same rays, the means in another order
+DP_TRAJ_RTOL = 2e-3         # the first DP_VIEWS steps' losses (tests/test_trainer_dp_resume.py)
+DP_TIMEOUT_S = 300.0        # the two ranks' deadline
 
 
 def log(msg: str) -> None:
@@ -672,6 +697,232 @@ def phase_path_stream(torch, trainer, train_ds):
     stream_stats(torch, spec, idx, vals, "path")
     t = time_scatter(torch, scatter, idx, vals, spec.total_params, "path")
     return {f"path_{k}": v for k, v in t.items()}
+
+
+def digest(tensors) -> str:
+    """A hash of the tensors' bytes: two ranks give the same only if every bit agrees."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_run(out_dir: str, n_devices: int, device: str = "cuda") -> None:
+    """The ``-O`` trainer as ``main_nerf`` builds it, at full width on the first DP_VIEWS
+    training views of proc_toys, for DP_EPOCHS epochs: in a rank of a ``--n_devices`` run
+    (spawned by ``phase_dp``; the rank's device) or, with ``n_devices`` 1, in this process
+    (on ``device``). Writes ``<out_dir>/rank<r>.json``: every step's loss, steps/s over
+    epochs 2 on, peak device memory, every kernel's launches in the run and digests of
+    the parameters, the EMA and the bitfield. Rank 0 of a run of ranks keeps the update
+    stream its last step gave ``scatter_add`` and, once every rank is done with the card,
+    holds the kernel against its plain version on it and times it (``dp_stream``)."""
+    import torch
+
+    from palettenerf_torch import parallel
+    from palettenerf_torch.config import Config
+    from palettenerf_torch.data.provider import NeRFDataset
+    from palettenerf_torch.main_nerf import build_parser
+    from palettenerf_torch.models.mlp import param_leaves
+    from palettenerf_torch.models.nerf import NeRFSpec
+    from palettenerf_torch.ops import hashgrid_fast
+    from palettenerf_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = parallel.group()
+    dev = torch.device(device) if g is None else g.device
+    rank = 0 if g is None else g.rank
+    cfg = Config.from_args(build_parser().parse_args(
+        MAIN_ARGS + ["--n_devices", str(n_devices)]))
+    spec = NeRFSpec.build(bound=cfg.bound, bg_radius=cfg.bg_radius, fp16=cfg.fp16_enabled,
+                          log2_hashmap_size=cfg.log2_hashmap_size,
+                          grid_levels=cfg.grid_levels, grid_level_dim=cfg.grid_level_dim)
+    train_ds = NeRFDataset(cfg, type="train")
+    train_ds.poses, train_ds.images = train_ds.poses[:DP_VIEWS], train_ds.images[:DP_VIEWS]
+    trainer = Trainer("ngp", cfg, spec, workspace=os.path.join(out_dir, "workspace"),
+                      use_checkpoint="scratch", eval_interval=10_000, device=dev, mute=True)
+    steps = []
+    update = trainer._update
+
+    def record(*args, **kw):  # every step's loss, read after the run
+        loss = update(*args, **kw)
+        steps.append(loss)
+        return loss
+
+    trainer._update = record
+    kernel, calls, stream = hashgrid_fast.scatter_add, [0], {}
+
+    def keep_last(idx, vals, total_rows, period=None):  # the last step's stream
+        if calls[0] == DP_EPOCHS * DP_VIEWS - 1:
+            stream.update(idx=idx, vals=vals, total=total_rows, period=period)
+        calls[0] += 1
+        return kernel(idx, vals, total_rows, period)
+
+    if g is not None and g.is_main:
+        hashgrid_fast.scatter_add = keep_last
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    try:
+        # ---------------------------------------------------------- main path
+        trainer.train(train_ds, None, 1)          # epoch 1: first-use costs included
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        trainer.train(train_ds, None, DP_EPOCHS)
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        # ----------------------------------------------------------
+    finally:
+        hashgrid_fast.scatter_add = kernel
+    result = {
+        "rank": rank, "world": n_devices, "device": str(dev),
+        "backend": None if g is None else g.backend,
+        "steps": [float(v) for v in steps], "global_step": trainer.global_step,
+        "steps_per_s": (DP_EPOCHS - 1) * DP_VIEWS / seconds,
+        "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        "launches": launches,
+        "params": digest(param_leaves(trainer.params)),
+        "ema": digest(param_leaves(trainer.ema_params)),
+        "bitfield": digest([trainer.grid_state.bitfield]),
+    }
+    if g is not None:
+        g.all_reduce_(torch.zeros(1, device=dev))   # a barrier: every rank is done
+        if stream:
+            result["stream"] = dp_stream(torch, trainer.spec.grid, stream)
+        g.all_reduce_(torch.zeros(1, device=dev))   # the others wait until rank 0 has timed
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def dp_stream(torch, spec, stream: dict) -> dict:
+    """B1 on the update stream a rank's backward gave it (one rank's share of a ``-O``
+    batch, its real cotangents): every kernel against the plain version, the stream's
+    statistics, the times and the bound."""
+    from palettenerf_torch.ops import scatter
+
+    idx, vals, total, period = (stream[k] for k in ("idx", "vals", "total", "period"))
+    if period != SCATTER_PERIOD or total != spec.total_params:
+        raise AssertionError(f"rank stream: period {period}, {total} rows")
+    max_err, _ = check_scatter(torch, scatter, idx, vals, total, "data-parallel rank 0 stream",
+                               period)
+    stream_stats(torch, spec, idx, vals, "data-parallel rank 0")
+    t = time_scatter(torch, scatter, idx, vals, total, "data-parallel rank 0")
+    U, C = idx.numel(), vals.shape[1]
+    n_bytes = U * (4 + 2 * C) + total * C * 4
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, U * C / FP32_FLOPS * 1e3
+    t.update(U=U, max_abs_err=max_err, bound_ms=max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations")
+    log(f"scatter_add bound on the data-parallel rank 0 stream {t['bound_ms']:.4f} ms "
+        f"({n_bytes / 1e6:.1f} MB)")
+    return t
+
+
+def _dp_ranks(torch, out_dir, world, backend, one):
+    """``dp_run`` in ``world`` spawned ranks with ``backend``: gloo ranks share the first
+    card (they see only it), nccl ranks take one card each. Checks the run against the
+    one-process run ``one`` and the ranks against rank 0; returns the ranks' results and
+    the run's numbers."""
+    import numpy as np
+
+    from palettenerf_torch import parallel
+
+    os.makedirs(out_dir)
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if backend == "gloo":   # the spawned ranks inherit the environment
+        os.environ["CUDA_VISIBLE_DEVICES"] = (visible or "0").split(",")[0]
+    t0 = time.perf_counter()
+    try:
+        parallel.spawn(dp_run, world, args=(out_dir, world), device="cuda",
+                       timeout_s=DP_TIMEOUT_S)
+    finally:
+        if visible is None:
+            os.environ.pop("CUDA_VISIBLE_DEVICES", None)
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = visible
+    ranks_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    steps = DP_VIEWS * DP_EPOCHS
+    ref = np.asarray(one["steps"][:DP_VIEWS])
+    got = np.asarray(ranks[0]["steps"][:DP_VIEWS])
+    first_rel = abs(got[0] - ref[0]) / abs(ref[0])
+    traj_rel = float(np.max(np.abs(got - ref) / np.abs(ref)))
+    out = {"backend": ranks[0]["backend"], "world": world,
+           "devices": [r["device"] for r in ranks],
+           "steps_per_s": [r["steps_per_s"] for r in ranks],
+           "peak_gib": [r["peak_gib"] for r in ranks],
+           "first_step_loss": got[0], "first_step_rel": first_rel,
+           "trajectory_max_rel": traj_rel, "phase_s": ranks_s,
+           "launches_per_rank": {k: [r["launches"][k] for r in ranks]
+                                 for k in ranks[0]["launches"]}}
+    log(f"data-parallel, {world} {backend} ranks: " + json.dumps(out, default=float))
+    if out["backend"] != backend:
+        raise AssertionError(f"the ranks chose {out['backend']}, not {backend}")
+    for r in ranks:
+        if r["global_step"] != steps or r["launches"]["scatter_add"] != steps:
+            raise AssertionError(f"rank {r['rank']}: {r['global_step']} steps, scatter_add "
+                                 f"launched {r['launches']['scatter_add']} times ({steps} "
+                                 f"expected)")
+        for k in ("steps", "params", "ema", "bitfield"):
+            if r[k] != ranks[0][k]:
+                raise AssertionError(f"rank {r['rank']} holds another {k} than rank 0")
+    if not first_rel <= DP_FIRST_RTOL:
+        raise AssertionError(f"first step's loss {got[0]} on the ranks, {ref[0]} in one "
+                             f"process: {first_rel:.2e} relative")
+    np.testing.assert_allclose(got, ref, rtol=DP_TRAJ_RTOL, atol=2e-5,
+                               err_msg=f"data-parallel loss trajectory ({backend})")
+    if not np.isfinite(np.asarray(ranks[0]["steps"])).all():
+        raise AssertionError("non-finite data-parallel losses")
+    if "stream" not in ranks[0]:
+        raise AssertionError("rank 0 kept no scatter_add stream")
+    return ranks, out
+
+
+def phase_dp(torch, dev):
+    """Ray data-parallel training: ``dp_run`` in DP_WORLD gloo ranks sharing the card
+    (``palettenerf_torch.parallel.spawn``), beside ``dp_run`` in this process with the
+    same seed. The first step's loss within DP_FIRST_RTOL, the first DP_VIEWS steps
+    within DP_TRAJ_RTOL, the ranks' parameters, EMA and bitfields equal bit for bit
+    after DP_VIEWS * DP_EPOCHS steps, ``scatter_add`` launched once per step on each
+    rank and held against its plain version on rank 0's stream. With DP_WORLD cards or
+    more, the same in DP_WORLD nccl ranks, one card each, and in one rank per card.
+    Returns (each kernel's launches per gloo rank, B1 on rank 0's stream, the phase's
+    numbers)."""
+    import shutil
+
+    root = os.path.join(ROOT, "results", "chip_smoke_dp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "n1"))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dp_run(os.path.join(root, "n1"), 1, str(dev))
+    one_s = time.perf_counter() - t0
+    with open(os.path.join(root, "n1", "rank0.json")) as f:
+        one = json.load(f)
+    if one["global_step"] != DP_VIEWS * DP_EPOCHS:
+        raise AssertionError(f"one process: {one['global_step']} steps")
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    plan = [(DP_WORLD, "gloo")]
+    if cards >= DP_WORLD:
+        plan.append((DP_WORLD, "nccl"))
+    if cards > DP_WORLD:
+        plan.append((cards, "nccl"))
+    out = {"one": {"steps_per_s": one["steps_per_s"], "peak_gib": one["peak_gib"],
+                   "first_step_loss": one["steps"][0], "phase_s": one_s}}
+    for world, backend in plan:
+        ranks, info = _dp_ranks(torch, os.path.join(root, f"{backend}{world}"), world,
+                                backend, one)
+        out[f"{backend}{world}"] = dict(info, stream=ranks[0]["stream"])
+        if (world, backend) == plan[0]:
+            launches, stream = info["launches_per_rank"], ranks[0]["stream"]
+    return launches, stream, out
 
 
 def phase_compaction_reference(torch, dev):
@@ -1438,6 +1689,54 @@ def phase_palette_reference(torch, dev):
                              f"loss: cpu {n_c}, card {n_g} (0 and 2 expected)")
 
 
+def phase_extraction_split(extractor, pal_ws: str, extract_s: float) -> dict:
+    """Where the palette main path's extraction spends its time (``extract_timer``, a
+    ``PhaseTimer``: the bake, the sweep renders, the device-to-host moves, the host's rays
+    and gathers, the host extraction with the native kernels), then the host extraction
+    again on the same inputs with the kernels' plain NumPy versions in their place: its
+    seconds, and the palette and weights, which must equal the native run's."""
+    import tempfile
+
+    import numpy as np
+
+    from palettenerf_torch import native
+    from palettenerf_torch.extraction.extract import palette_extraction
+    from palettenerf_torch.extraction.geometry import point_triangle_min_dist_reference
+    from palettenerf_torch.extraction.histogram import rgb_histogram_reference
+
+    timer = extractor.extract_timer
+    log(f"extraction by phase ({extract_s:.1f} s in all, checkpoint and data load "
+        f"included):\n" + timer.report())
+    palette = np.load(os.path.join(pal_ws, "palette.npz"))["palette"]
+    hist = np.load(os.path.join(pal_ws, "hist_weights.npz"))["hist_weights"]
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "results")) as tmp:
+        kernels = (native.rgb_histogram_native, native.point_triangle_min_dist_native)
+        # the extraction's calls of the native kernels go to their plain versions
+        native.rgb_histogram_native = rgb_histogram_reference
+        native.point_triangle_min_dist_native = point_triangle_min_dist_reference
+        t0 = time.perf_counter()
+        try:
+            plain = palette_extraction(extractor.extract_inputs, tmp,
+                                       normalize_input=extractor.opt.use_normalized_palette,
+                                       error_thres=extractor.opt.error_thres)
+        finally:
+            native.rgb_histogram_native, native.point_triangle_min_dist_native = kernels
+        numpy_s = time.perf_counter() - t0
+    split = {k: timer.totals[k] for k in timer.totals}
+    split.update(total_s=extract_s, host_extraction_numpy_s=numpy_s,
+                 host_extraction_native_s=timer.totals["host extraction"],
+                 host_s=sum(timer.totals[k] for k in ("host rays", "host gather",
+                                                      "host extraction")))
+    log(f"host extraction: native {split['host_extraction_native_s']:.2f} s, NumPy "
+        f"{numpy_s:.2f} s on the same {len(extractor.extract_inputs['colors'])} colors")
+    if not np.array_equal(plain[0], palette):
+        raise AssertionError(f"NumPy extraction gave another palette: {plain[0]} against "
+                             f"{palette}")
+    if plain[1].shape != hist.shape or np.abs(plain[1] - hist).max() > 1e-10:
+        raise AssertionError("NumPy extraction gave other hist weights")
+    return split
+
+
 def phase_palette(torch, dev, train_ds):
     """The palette stages at full width through ``main_palette.main``: extraction, then
     300 training steps, on the stage-1 workspace the train main path wrote. Returns (the
@@ -1467,6 +1766,7 @@ def phase_palette(torch, dev, train_ds):
     peak_extract = torch.cuda.max_memory_allocated() / 2 ** 30
     pal_ws = extractor.workspace
     stats = extractor.extract_stats
+    extract_split = phase_extraction_split(extractor, pal_ws, extract_s)
     del extractor
     palette = np.load(os.path.join(pal_ws, "palette.npz"))["palette"]
     hist = np.load(os.path.join(pal_ws, "hist_weights.npz"))["hist_weights"]
@@ -1564,7 +1864,7 @@ def phase_palette(torch, dev, train_ds):
     if not val_psnr > PALETTE_PSNR_FLOOR:
         raise AssertionError(f"palette validation PSNR {val_psnr:.3f} dB <= floor "
                              f"{PALETTE_PSNR_FLOOR}")
-    return launches, trainer.workspace, val_psnr
+    return launches, trainer.workspace, val_psnr, extract_split
 
 
 def phase_serve_reference(torch, dev):
@@ -2326,6 +2626,10 @@ def phase_bg_linear_palette(torch, dev):
 
 
 def main() -> int:
+    dp_only = sys.argv[1:] == ["--dp-only"]
+    if sys.argv[1:] and not dp_only:
+        print("usage: python3 chip_smoke.py [--dp-only]", file=sys.stderr)
+        return 2
     if not os.path.isdir(os.path.join(ROOT, "palettenerf_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
               "(palettenerf_torch/ not found beside it)", file=sys.stderr)
@@ -2349,23 +2653,32 @@ def main() -> int:
 
     from concurrent.futures import ThreadPoolExecutor
 
+    from palettenerf_torch import native
     from palettenerf_torch.ops import scatter, window_gather
 
     t0 = time.perf_counter()
-    libs = [scatter.LIBRARY, window_gather.LIBRARY]
-    with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, all at once
+    libs = [scatter.LIBRARY, window_gather.LIBRARY, native.LIBRARY]
+    with ThreadPoolExecutor(len(libs)) as pool:  # one compiler per source, all at once
         for f in [pool.submit(lib.build) for lib in libs]:
             f.result()
     log(f"build: {', '.join(os.path.basename(lib.source) for lib in libs)} in "
-        f"{time.perf_counter() - t0:.1f} s (in parallel)")
-    for lib in libs:
+        f"{time.perf_counter() - t0:.1f} s (in parallel; the extraction's C++ with: "
+        f"{' '.join(native.LIBRARY.build_command)})")
+    for lib in libs[:2]:
         if lib.build_log:
             log(f"nvcc -Xptxas -v ({lib.name}):\n" + lib.build_log.strip())
 
+    if dp_only:
+        _, _, dp = phase_dp(torch, dev)
+        log(f"data-parallel phase passed in {time.perf_counter() - t_start:.1f} s")
+        print(nvidia_smi())
+        print(json.dumps({"dp": dp}, default=float))
+        return 0
     kernels = phase_kernels(torch, dev)
     wg_entry = phase_window_gather(torch, dev)
     phase_reference(torch, dev)
     train_launches, path_times, train_ds, stage1, o_psnr = phase_main_path(torch, dev)
+    dp_launches, dp_stream_times, dp = phase_dp(torch, dev)
     compact_ref_err = phase_compaction_reference(torch, dev)
     compact_launches, compact_train, compact_stream = phase_compact_train(torch, dev, train_ds)
     compact_eval = phase_compact_eval(torch, dev)
@@ -2375,7 +2688,8 @@ def main() -> int:
     bg_launches, bg_patch, bg_stream = phase_bg_patch(torch, dev, train_ds)
     bg_palette_launches, bg_palette = phase_bg_linear_palette(torch, dev)
     phase_palette_reference(torch, dev)
-    palette_launches, palette_ws, o_palette_psnr = phase_palette(torch, dev, train_ds)
+    palette_launches, palette_ws, o_palette_psnr, extract_split = phase_palette(torch, dev,
+                                                                                train_ds)
     n_views = len(train_ds)
     del train_ds
     phase_edit_reference(torch, dev)
@@ -2402,6 +2716,10 @@ def main() -> int:
         k["bg_patch_launches"] = bg_launches[k["name"]]
         k["bg_patch_stream"] = bg_stream
         k["palette_bg_linear_launches"] = bg_palette_launches[k["name"]]
+        k["dp_launches_per_rank"] = dp_launches[k["name"]]
+        k["dp_stream"] = dp_stream_times
+        k["path"] += ", train-dp"
+    wg_entry["dp_launches_per_rank"] = dp_launches[wg_entry["name"]]
     kernels.append(wg_entry)
     log("compaction summary: " + json.dumps({
         "reference_max_abs_err": compact_ref_err, "train": compact_train,
@@ -2410,6 +2728,8 @@ def main() -> int:
                                       "palette": o2_palette}))
     log("model options summary: " + json.dumps({"reference": options_err, "bg_patch": bg_patch,
                                                 "palette_bg_linear": bg_palette}))
+    log("data-parallel and extraction summary: " + json.dumps(
+        {"dp": dp, "extraction": extract_split}, default=float))
     phase_serve_reference(torch, dev)
     phase_serve(torch, dev, palette_ws)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -12,18 +12,20 @@ counterpart is easy to find:
   train/   trainer (with the GUI hooks and the mesh export), checkpoints (incl. the
            JAX package's pickles), metrics
   gui/     orbit camera, the headless EditingSession, the optional DearPyGui front-ends
-  utils/   color conversions, marching tetrahedra + PLY
+  parallel/  ray data-parallel training over ``torch.distributed``, one process per rank
+  native/  the extraction's host kernels in C++ (built with ``g++`` at first use)
+  utils/   color conversions, marching tetrahedra + PLY, phase timer and trace capture
 
-Ported so far: the stage-1 Instant-NGP train step with ``-O`` (bf16 hash-grid
-backward through the CUDA scatter kernel), the density-grid refresh, the exact
-eval render and the mesh export (``python -m palettenerf_torch.main_nerf``); palette
-extraction and PaletteNeRF training (``python -m palettenerf_torch.main_palette``);
-interactive editing (``palettenerf_torch.gui``); serving — a trained palette
-checkpoint baked into dense volumes, frames by the shear-warp sweep with live recolors
-(``python -m palettenerf_torch.main_serve``); every training profile and model option of
-the JAX trainers but ``--n_devices > 1`` and ``--rand_pose`` (the background net, the
-linear colour space, the rLPIPS patch loss and the meters among them); the leaf ops; and
-the window-gather kernel.
+Ported: the stage-1 Instant-NGP train step with ``-O`` (bf16 hash-grid backward through
+the CUDA scatter kernel), the density-grid refresh, the exact eval render and the mesh
+export (``python -m palettenerf_torch.main_nerf``); palette extraction and PaletteNeRF
+training (``python -m palettenerf_torch.main_palette``); interactive editing
+(``palettenerf_torch.gui``); serving — a trained palette checkpoint baked into dense
+volumes, frames by the shear-warp sweep with live recolors (``python -m
+palettenerf_torch.main_serve``); every training profile and model option of the JAX
+trainers but ``--rand_pose`` (the background net, the linear colour space, the rLPIPS
+patch loss, the meters and ``--n_devices > 1`` among them); the leaf ops; and the
+window-gather kernel.
 """
 
 from __future__ import annotations

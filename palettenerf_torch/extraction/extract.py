@@ -115,7 +115,9 @@ def palette_extraction(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """inputs = {'colors': [N,3] in [0,1]}; writes palette.npz + hist_weights.npz.
 
-    Returns (palette_rgb [P,3], hist_weights [32,32,32,P]).
+    Returns (palette_rgb [P,3], hist_weights [32,32,32,P]). The histograms and the
+    point-triangle distances run in the C++ kernels of ``native/``, the JAX package's
+    default path.
     """
     if palette_size is not None and palette_size < 4:
         raise ValueError(f"palette_size {palette_size}: a hull in rgb has at least 4 vertices")

@@ -1,6 +1,13 @@
 """Vectorized point-to-triangle distance (replaces the Cython GteDistPointTriangle,
 reference ``palette/rgbsg/fastLayerDecomposition/GteDistPointTriangle.pyx``). The port's
-own copy of ``palettenerf_tpu/extraction/geometry.py``, NumPy path only.
+own copy of ``palettenerf_tpu/extraction/geometry.py``: ``closest_point_on_hull`` runs
+the C++ kernel of ``native/``, the JAX package's default path;
+``point_triangle_min_dist_reference`` is its plain NumPy version. The two agree on the
+distance to 1e-10; they clamp
+differently off the triangle (the C++ kernel takes the projection when it lies inside,
+else the best of the three clamped edges; NumPy the same, with the interior solution
+clamped into [0, 1] first), and may break a tie between equally near edges or
+triangles differently, so the closest points can differ where two are equally near.
 
 Implementation: orthogonal projection onto the triangle plane followed by clamping into
 the triangle via edge-region analysis — the classic Eberly region decomposition,
@@ -13,6 +20,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+
+from .. import native
 
 
 def point_triangle_distance(points: np.ndarray, triangles: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -74,9 +83,16 @@ def closest_point_on_hull(points: np.ndarray, hull_vertices: np.ndarray, simplic
     points [N,3]; hull_vertices [V,3]; simplices [F,3] indices into hull_vertices.
     Returns (dist [N], closest [N,3]).
     """
-    tris = hull_vertices[simplices]  # [F, 3, 3]
+    return native.point_triangle_min_dist_native(points, hull_vertices[simplices].reshape(-1, 9))
 
-    d, c = point_triangle_distance(points[:, None, :], tris[None, :, :, :])  # [N,F]
+
+def point_triangle_min_dist_reference(points: np.ndarray,
+                                      tris: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """``native.point_triangle_min_dist_native`` in NumPy, its plain version: points
+    [N, 3], triangles [T, 9] -> (the distance to the nearest triangle [N], the closest
+    point on it [N, 3])."""
+    tris = np.asarray(tris, np.float64).reshape(-1, 3, 3)
+    d, c = point_triangle_distance(points[:, None, :], tris[None, :, :, :])  # [N,T]
     best = np.argmin(d, axis=1)
     n = np.arange(len(points))
     return d[n, best], c[n, best]

@@ -9,7 +9,8 @@ the edge's endpoints, scores it by total added tetra volume, collapses the cheap
 reconstruction RMSE would exceed ``error_thres`` (or when ``target_size`` is reached).
 """
 
-# The port's own copy of ``palettenerf_tpu/extraction/hull.py`` (NumPy + SciPy, unchanged).
+# The port's own copy of ``palettenerf_tpu/extraction/hull.py`` (NumPy + SciPy, and the
+# C++ point-triangle kernel of ``native/``).
 
 from __future__ import annotations
 

@@ -13,14 +13,20 @@
 ``-O2`` is ``-O`` plus ``--fast_grad --stochastic_trilerp --grad_levels 8``;
 ``--gridtype hash_xadd``, ``--error_map``, ``--color_space linear`` combine with either.
 
-Same flags as the JAX package's ``main_nerf.py`` (``--n_devices > 1`` and
-``--rand_pose`` are accepted and raise) and the same meters: PSNR, LPIPS (NaN without
+    # ray data-parallel over two ranks (spawned here; nccl with a card per rank, else gloo)
+    python -m palettenerf_torch.main_nerf data_proc/proc_toys -O --bound 1 --scale 0.8 \
+        --bg_radius 0 --density_thresh 10 --iters 8000 --workspace proc_toys_dp --n_devices 2
+
+Same flags as the JAX package's ``main_nerf.py`` (``--rand_pose`` is accepted and
+raises) and the same meters: PSNR, LPIPS (NaN without
 the ``lpips`` package) and rLPIPS in training, SSIM too with ``--test``. Both branches
 end with the mesh export, ``save_mesh(256, 10)`` ->
 ``<workspace>/meshes/ngp_<epoch>.ply``; ``--gui`` opens the DearPyGui viewer
 instead (``palettenerf_torch.gui.NeRFGUI``; without the ``dearpygui`` package it raises,
 and ``palettenerf_torch.gui.EditingSession`` is the headless way in). Runs on CUDA;
-``main(argv, device="cpu")`` runs on the CPU.
+``main(argv, device="cpu")`` runs on the CPU. With ``--n_devices N > 1`` ``main`` spawns N
+ranks (``palettenerf_torch.parallel``), each of which runs ``main`` on its shard of the
+rays, waits for them and returns None; rank 0 writes the workspace.
 """
 
 from __future__ import annotations
@@ -137,7 +143,13 @@ def resolve_workspace(root: str, workspace: str, version_id: int, test: bool) ->
     return os.path.join(workspace_dir, f"version_{(1 - int(test)) + vid}")
 
 
+def _rank_main(argv, device, mesh_resolution: int) -> None:
+    """One rank of a ``--n_devices`` run, spawned by ``main``."""
+    main(argv, device, mesh_resolution)
+
+
 def main(argv=None, device="cuda", mesh_resolution: int = 256):
+    from . import parallel
     from .config import Config
     from .data.provider import NeRFDataset
     from .models.nerf import NeRFSpec
@@ -147,7 +159,13 @@ def main(argv=None, device="cuda", mesh_resolution: int = 256):
     opt = build_parser().parse_args(argv)
     cfg = Config.from_args(opt)
     check_ported(cfg)
-    print(cfg)
+    if cfg.n_devices > 1:
+        if parallel.group() is None:  # the parent: start the ranks
+            workspace = resolve_workspace("results", cfg.workspace, cfg.version_id, cfg.test)
+            return parallel.run_cli(_rank_main, cfg, argv, workspace, device, mesh_resolution)
+        device = parallel.group().device
+    if parallel.group() is None or parallel.group().is_main:
+        print(cfg)
 
     np.random.seed(cfg.seed)
     torch.manual_seed(cfg.seed)

@@ -19,15 +19,15 @@ an NVIDIA GPU.
         --use_initialization_from_rgbxy --use_normalized_palette --dt_gamma 0 \
         --datatype blender --iters 8000
 
-Same flags as the JAX package's ``main_palette.py`` (``--n_devices > 1`` and
-``--rand_pose`` are accepted and raise) and the same meters (PSNR, LPIPS, rLPIPS in
-training; PSNR, SSIM, LPIPS, rLPIPS, TV, Sparsity with ``--test``), including the
-nerf-version discovery and the ``results_palette/...`` workspace mirroring (reference
-``main_palette.py:114-132``), the palette size taken from the extracted palette
-(:137-141), and the three branches extract / test / train (:147-243). The stage-1
-workspace is one that ``main_nerf`` of this package wrote (a JAX-package stage-1 pickle
-is read too). Runs on CUDA;
-``main(argv, device="cpu")`` runs on the CPU.
+Same flags as the JAX package's ``main_palette.py`` (``--rand_pose`` is accepted and
+raises; ``--n_devices N > 1`` spawns N ranks, as ``main_nerf`` does) and the same meters
+(PSNR, LPIPS, rLPIPS in training; PSNR, SSIM, LPIPS, rLPIPS, TV, Sparsity with
+``--test``), including the nerf-version discovery and the ``results_palette/...``
+workspace mirroring (reference ``main_palette.py:114-132``), the palette size taken from
+the extracted palette (:137-141), and the three branches extract / test / train
+(:147-243). The stage-1 workspace is one that ``main_nerf`` of this package wrote (a
+JAX-package stage-1 pickle is read too). Runs on CUDA; ``main(argv, device="cpu")`` runs
+on the CPU.
 """
 
 from __future__ import annotations
@@ -38,6 +38,8 @@ import os
 
 import numpy as np
 import torch
+
+from . import parallel
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -207,7 +209,8 @@ def _setup(argv):
         extracted = (np.load(pal_file)["palette"],
                      np.load(os.path.join(paths[1], "hist_weights.npz"))["hist_weights"])
         cfg = cfg.replace(num_basis=int(extracted[0].shape[0]))
-    print(cfg)
+    if parallel.group() is None or parallel.group().is_main:
+        print(cfg)
     return cfg, paths, extracted
 
 
@@ -281,13 +284,30 @@ def load_test_trainer(argv=None, device="cuda"):
     return cfg, _test_trainer(cfg, paths[2], extracted, device)
 
 
+def _rank_main(argv, device) -> None:
+    """One rank of a ``--n_devices`` run, spawned by ``main``."""
+    main(argv, device)
+
+
 def main(argv=None, device="cuda"):
+    """The palette CLI. With ``--n_devices N > 1`` it spawns N ranks, each of which runs
+    ``main`` on its shard of the rays, waits for them and returns None; rank 0 writes the
+    workspace."""
+    from .config import Config
     from .data.palette_provider import PaletteDataset
     from .models.nerf import NeRFSpec
     from .models.palette import PaletteSpec
     from .train.palette_trainer import PaletteTrainer
-    from .train.trainer import Trainer
+    from .train.trainer import Trainer, check_ported
 
+    if parallel.group() is None:
+        opt = build_parser().parse_args(argv)
+        cfg = Config.from_args(opt)
+        if cfg.n_devices > 1:  # the parent: start the ranks
+            check_ported(cfg)
+            return parallel.run_cli(_rank_main, cfg, argv, resolve_workspaces(opt)[2], device)
+    else:
+        device = parallel.group().device
     cfg, (nerf_path, palette_workspace, workspace), extracted = _setup(argv)
     if cfg.extract_palette:
         # stage 2: render the training views with the plain NeRF and extract

@@ -104,18 +104,23 @@ class RefusedCounter:
             self._counters[device] = torch.zeros(1, dtype=torch.int32, device=device)
         return self._counters[device]
 
-    def check(self) -> None:
-        """Raise ValueError if a launch since the last check refused anything."""
+    def check(self, reduce=None) -> None:
+        """Raise ValueError if a launch since the last check refused anything. ``reduce``
+        (optional) maps this process's count to the count over every process of a run
+        (a sum over the ranks), so that all of them raise or none does."""
         refused = {}
         for device, counter in self._counters.items():  # read and zero every device first
             n = int(counter)
             if n:
                 counter.zero_()
                 refused[str(device)] = n
-        if refused:
-            raise ValueError(f"{self.what}: {sum(refused.values())} indices outside their "
-                             f"range were refused ({refused}; nothing was read or written "
-                             f"at them)")
+        total = sum(refused.values())
+        if reduce is not None:
+            total = reduce(total)
+        if total:
+            raise ValueError(f"{self.what}: {total} indices outside their range were "
+                             f"refused ({refused or 'on another rank'}; nothing was read "
+                             f"or written at them)")
 
 
 def check_launch(err: int, what: str) -> None:

@@ -34,7 +34,8 @@ loss's share of a host-sampled step).
 Prints, for each window, the wall time, the summed device time of all kernels and its
 share of the wall time (busy share; one stream, so kernels do not overlap), the number
 of kernel launches, the operators with the most device time, and the device time per
-launch of the hand-written scatter kernel on that path.
+launch of the hand-written scatter kernel on that path; and writes each window's Chrome
+trace under ``results/profile_trace/`` (``utils.profiling.trace``).
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ from .data.provider import NeRFDataset
 from .main_nerf import build_parser
 from .models.nerf import NeRFSpec
 from .train.trainer import Trainer
+from .utils.profiling import trace
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARGS = [os.path.join(_ROOT, "data_proc", "proc_toys"), "-O", "--bound", "1", "--scale",
@@ -58,9 +60,8 @@ ARGS = [os.path.join(_ROOT, "data_proc", "proc_toys"), "-O", "--bound", "1", "--
 
 
 def _profile(what: str, fn, top: int = 15):
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
+    with trace(os.path.join(_ROOT, "results", "profile_trace")) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()

@@ -22,6 +22,12 @@ Port of ``palettenerf_tpu/train/palette_trainer.py`` (reference ``PaletteTrainer
 - the ground truth as the stage-1 trainer takes it: the straight RGB of RGBA images with
   the background net (which the warm start copies from stage 1 and this stage trains),
   in linear space with ``--color_space linear`` (:138-140, :479-480, :623-624).
+- ``--n_devices > 1`` as in the stage-1 trainer (``palettenerf_torch.parallel``): a
+  paired ``--random_size`` batch gives each rank the same block of both halves, so
+  ``patch_smooth_term`` pairs ray i with ray i + N/2 within the rank; the
+  ``lambda_palette`` term reads only parameters and is counted on rank 0; each rank
+  renders the extraction's views, and rank 0 alone runs the host extraction and writes
+  its files.
 - the opt-in render options as in the stage-1 trainer; the ``--eval_fine_grid`` bake
   queries the palette field's density (:304), which this stage never moves, so it is
   dropped only when the parameters are replaced (:336, :653).
@@ -153,10 +159,13 @@ class PaletteTrainer(Trainer):
         [N*S, 3] (smooth-loss jitter) and, under ``-O2``, the encode draws ``enc_u`` /
         ``enc_lvls`` are drawn from the trainer's generator, in this order, when None.
         ``gt_feat`` [N, clip_dim] is needed with ``pred_clip``; the batch's pixel indices
-        ``inds`` [N] and image ``width`` with the patch-smooth term.
+        ``inds`` [N] and image ``width`` with the patch-smooth term. On a rank of a
+        ``--n_devices`` run, as ``Trainer.train_step``: the rays, images, ``gt_feat`` and
+        ``inds`` are the rank's shard, the draws the whole batch's.
         """
         opt, spec, dev = self.opt, self.palette_spec, self.device
-        n = rays_o.shape[0]
+        shard = self._step_shard(rays_o.shape[0])
+        n = rays_o.shape[0] if shard is None else shard.n
         smooth = self.require_smooth_loss
         patch = smooth and opt.random_size > 0 and opt.lambda_patchsmooth > 0
         if patch and (inds is None or width is None):
@@ -165,16 +174,19 @@ class PaletteTrainer(Trainer):
         if images.shape[-1] == 4 and spec.bg_radius <= 0:
             if bg is None:
                 bg = torch.rand((n, 3), generator=self.generator, device=dev)
+            bg = self._take(bg, shard)
             gt = images[..., :3] * images[..., 3:] + bg * (1.0 - images[..., 3:])
         else:
             bg = torch.ones((3,), dtype=torch.float32, device=dev)
             gt = images[..., :3]
         if noise is None:
             noise = torch.rand((n,), generator=self.generator, device=dev)
+        noise = self._take(noise, shard)
         if smooth and jit_u is None:
             jit_u = torch.rand((n * self.train_settings.num_samples, 3),
                                generator=self.generator, device=dev)
-        rand = self._encode_rand(n, enc_u, enc_lvls)
+        jit_u = self._take(jit_u, shard)
+        rand = self._encode_rand(n, enc_u, enc_lvls, shard)
 
         p = self.params
         out = render_palette_train(p, spec, self.grid_state.bitfield, rays_o, rays_d,
@@ -196,15 +208,16 @@ class PaletteTrainer(Trainer):
         if patch:
             loss = loss + opt.lambda_patchsmooth * patch_smooth_term(out, inds, width,
                                                                      opt.sigma_color)
-        if self.lambda_palette:
-            loss = loss + self.lambda_palette * (
-                (p["basis_color"] - p["basis_color_origin"]) ** 2).sum(-1).mean()
         if "hist_weights" in p:
             gt_w = get_palette_weight_with_hist(gt, p["hist_weights"]).detach()
             loss = loss + self.lambda_weight * ((gt_w - out["basis_acc"]) ** 2).mean()
+        param_loss = None  # the term of the parameters alone: once per step, not per rank
+        if self.lambda_palette:
+            param_loss = self.lambda_palette * (
+                (p["basis_color"] - p["basis_color_origin"]) ** 2).sum(-1).mean()
 
-        self._update(loss, zero_grad_for=(p["basis_color"],))
-        return loss.detach(), per_ray.detach()
+        loss = self._update(loss, zero_grad_for=(p["basis_color"],), param_loss=param_loss)
+        return loss, per_ray.detach()
 
     def _batch_step(self, data: dict, **draws):
         """The palette-loss step from a collated batch (the host-sampled epoch and
@@ -217,8 +230,7 @@ class PaletteTrainer(Trainer):
             gt_feat = (self._batch(data, "feat_images") if "feat_images" in data else
                        torch.zeros((images.shape[0], self.palette_spec.clip_dim),
                                    device=self.device))
-        inds = None if "inds" not in data else torch.as_tensor(
-            np.asarray(data["inds"]), dtype=torch.int64, device=self.device)
+        inds = None if "inds" not in data else self._batch(data, "inds", np.int64)
         return self.train_step(self._batch(data, "rays_o"), self._batch(data, "rays_d"),
                                images, gt_feat=gt_feat, inds=inds, width=data.get("W"),
                                **draws)
@@ -277,6 +289,7 @@ class PaletteTrainer(Trainer):
         for idx in order:
             inds = torch.randint(0, H * W, (self.opt.num_rays,), generator=self.generator,
                                  device=self.device)
+            inds = self._take(inds, self._batch_shard(self.opt.num_rays))
             pix = self._dev_images[idx][inds]
             gt_feat = None if self._dev_feats is None else self._dev_feats[idx][inds]
             rays_o, rays_d = gen_rays_torch(self._dev_poses[idx], intr, H, W, inds)
@@ -382,30 +395,44 @@ class PaletteTrainer(Trainer):
         factorized: that view goes through the per-ray path.
 
         Returns (palette_rgb [P, 3], hist_weights [32, 32, 32, P]); ``self.extract_stats``
-        holds the counts of foreground samples and of per-ray fallback views.
+        holds the counts of foreground samples and of per-ray fallback views, and
+        ``self.extract_timer`` (a ``PhaseTimer``) the seconds of the bake, the sweep
+        renders, the device-to-host moves, the host's rays and gathers and the host
+        extraction; ``self.extract_inputs`` keeps the colors and xyzs the host extraction
+        took. On a rank of a ``--n_devices`` run every rank renders, and
+        rank 0 alone extracts, writes and returns; the others return None.
         """
         from ..extraction.extract import palette_extraction
+        from ..utils.profiling import PhaseTimer
 
         save_path = save_path or self.workspace
         os.makedirs(save_path, exist_ok=True)
+        timer = self.extract_timer = PhaseTimer()
         sv = None
         if via_sweep:
             from ..render.baking import bake_nerf, mask_with_bitfield
             from ..render.sweep import build_sweep_volume, plan_sweep, render_sweep
 
             t0 = time.time()
-            baked = bake_nerf(nerf_trainer.eval_params(), nerf_trainer.spec,
-                              resolution=sweep_resolution)
-            gs = nerf_trainer.grid_state
-            baked = mask_with_bitfield(baked, {"bitfield": gs.bitfield.cpu().numpy(),
-                                               "density_grid": gs.density_grid.cpu().numpy()})
-            sv = build_sweep_volume(baked)
-            del baked
+            with timer.phase("bake", sync_on=nerf_trainer.grid_state.bitfield):
+                baked = bake_nerf(nerf_trainer.eval_params(), nerf_trainer.spec,
+                                  resolution=sweep_resolution)
+                gs = nerf_trainer.grid_state
+                baked = mask_with_bitfield(baked, {
+                    "bitfield": gs.bitfield.cpu().numpy(),
+                    "density_grid": gs.density_grid.cpu().numpy()})
+                sv = build_sweep_volume(baked)
+                del baked
             self.log(f"[extract_palette] sweep volume baked in {time.time() - t0:.1f}s "
                      f"(R={sweep_resolution})")
         all_norm, all_xyz = [], []
         n_fallback = 0
-        for data in loader.iter_epoch():
+        views = loader.iter_epoch()
+        while True:
+            with timer.phase("host rays"):  # the loader's collate: the view's rays
+                data = next(views, None)
+            if data is None:
+                break
             H, W = data["H"], data["W"]
             use_sweep = False
             if sv is not None:
@@ -413,23 +440,28 @@ class PaletteTrainer(Trainer):
                 plan = plan_sweep(np.asarray(pose), loader.intrinsics, H, W, sv.bound, u_res)
                 use_sweep = abs(float(plan.o_p[0])) > sv.bound * 1.02
             if use_sweep:
-                out = render_sweep(sv, pose, loader.intrinsics, H, W, u_res=u_res,
-                                   min_near=self.opt.min_near,
-                                   t_thresh=self.opt.t_thresh_infer)
-                # one device-to-host move per view
-                w, depth_o = torch.stack([out["weights_sum"].reshape(-1),
-                                          out["depth_origin"].reshape(-1)]).cpu().numpy()
+                with timer.phase("sweep render", sync_on=sv.vols):
+                    out = render_sweep(sv, pose, loader.intrinsics, H, W, u_res=u_res,
+                                       min_near=self.opt.min_near,
+                                       t_thresh=self.opt.t_thresh_infer)
+                with timer.phase("device to host"):  # one move per view
+                    w, depth_o = torch.stack([out["weights_sum"].reshape(-1),
+                                              out["depth_origin"].reshape(-1)]).cpu().numpy()
             else:
                 n_fallback += 1 if sv is not None else 0
-                out = nerf_trainer.eval_step_full(data)
+                with timer.phase("per-ray render"):  # its chunks' moves to the host included
+                    out = nerf_trainer.eval_step_full(data)
                 w = out["weights_sum"].reshape(-1)
                 depth_o = out.get("depth_origin", out["depth"]).reshape(-1)
-            gt = eval_gt(self.opt, data["images"]).reshape(-1, 3)
-            valid = w > 0.5
-            norm = gt[valid] + np.float32(0.05)
-            all_norm.append(norm / np.linalg.norm(norm, axis=-1, keepdims=True))
-            all_xyz.append(data["rays_o"].reshape(-1, 3)[valid]
-                           + data["rays_d"].reshape(-1, 3)[valid] * depth_o[valid, None])
+            with timer.phase("host gather"):
+                gt = eval_gt(self.opt, data["images"]).reshape(-1, 3)
+                valid = w > 0.5
+                norm = gt[valid] + np.float32(0.05)
+                all_norm.append(norm / np.linalg.norm(norm, axis=-1, keepdims=True))
+                all_xyz.append(data["rays_o"].reshape(-1, 3)[valid]
+                               + data["rays_d"].reshape(-1, 3)[valid] * depth_o[valid, None])
+        if not self.is_main:
+            return None  # rank 0 extracts and writes
         colors = np.concatenate(all_norm, 0)
         xyzs = np.concatenate(all_xyz, 0)
         if sv is not None and n_fallback:
@@ -437,10 +469,14 @@ class PaletteTrainer(Trainer):
                      "the per-ray path")
         self.log(f"[extract_palette] {len(colors)} foreground samples")
         self.extract_stats = {"foreground_samples": len(colors), "fallback_views": n_fallback}
-        return palette_extraction(
-            {"colors": colors, "xyzs": xyzs}, save_path,
-            normalize_input=normalize_input, error_thres=self.opt.error_thres,
-        )
+        self.extract_inputs = {"colors": colors, "xyzs": xyzs}
+        with timer.phase("host extraction"):
+            result = palette_extraction(
+                self.extract_inputs, save_path,
+                normalize_input=normalize_input, error_thres=self.opt.error_thres,
+            )
+        self.log("[extract_palette] time by phase:\n" + timer.report())
+        return result
 
     # ------------------------------------------------------------------ warm start
 

@@ -29,6 +29,20 @@ Port of the ``-O`` path of ``palettenerf_tpu/train/trainer.py``:
   ``test_gui`` frames at a downscale, ``set_render_option`` for the GUI sliders,
   ``save_view``, and ``save_mesh`` (density lattice on the device, marching tetrahedra
   on the host).
+- Ray data-parallel training (``--n_devices > 1``, :90-99): one process per rank
+  (``palettenerf_torch.parallel``), each with the whole replicated state. A rank trains on
+  its shard of every batch (``parallel.RayShard``; every draw of the step is made for
+  the whole batch and sliced, so the generators stay in step and the rays are those of
+  one process), scales its loss by 1/n_devices and counts the terms that read only
+  parameters on rank 0, so that the summed gradients (``RayGroup.reduce_grads``, one
+  all-reduce per step) are the whole batch's, and reports the whole batch's loss. The
+  grid refresh, the EMA and Adam then run alike on every rank; the error map's update
+  takes the rows of every rank; refused scatter rows and dropped samples are summed over
+  the ranks. An eval frame is rendered a whole chunk per rank (chunk k on rank k mod
+  n_devices: the compaction rounds pick their rays per chunk, so the frame equals the
+  single-process frame); each rank writes its chunks into a zero frame and an all-reduce
+  sums the frames. Rank 0 alone logs and writes
+  checkpoints, images and meshes.
 - The opt-in render options (:111-136), all off by default: ``--train_compact_frac`` /
   ``--eval_compact_frac`` (the network runs on the march-valid samples only, in a static
   budget; the eval renders' dropped samples are summed over a frame and logged once),
@@ -38,7 +52,8 @@ Port of the ``-O`` path of ``palettenerf_tpu/train/trainer.py``:
 
 All randomness comes from one ``torch.Generator`` on the trainer's device, seeded
 with ``opt.seed`` (the host samplers of ``iter_epoch`` use the dataset's own NumPy
-generator). Options of the JAX trainer that are not ported yet (``check_ported``) raise.
+generator). ``--rand_pose`` (CLIP guidance, no weights in the repository) raises
+(``check_ported``).
 """
 
 from __future__ import annotations
@@ -52,7 +67,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import parallel, resolve_device
 from ..config import Config
 from ..data.png import write_png
 from ..data.rays import gen_rays, gen_rays_torch
@@ -72,11 +87,10 @@ _DENSITY_CHUNK = 1 << 18  # grid points per density query during a refresh
 
 
 def check_ported(opt: Config) -> None:
-    """Raise for options whose code paths are not ported yet."""
-    unported = {"n_devices > 1": opt.n_devices > 1, "rand_pose": opt.rand_pose >= 0}
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(f"not ported to palettenerf_torch yet: {', '.join(bad)}")
+    """Raise for the option whose code path is not ported: ``rand_pose`` (CLIP guidance
+    needs CLIP weights, which the repository does not hold)."""
+    if opt.rand_pose >= 0:
+        raise NotImplementedError("not ported to palettenerf_torch: rand_pose")
 
 
 def _copy_params(params, device):
@@ -136,7 +150,14 @@ class Trainer:
         self.name = name
         self.opt = opt
         self.spec = spec
-        self.device = resolve_device(device)
+        # the rank of a --n_devices run (its own device), or None in one process
+        self.dp = parallel.group_for(opt.n_devices)
+        if self.dp is not None:
+            parallel.check_batch(opt.num_rays, opt.n_devices, opt.patch_size, opt.random_size)
+        self.device = self.dp.device if self.dp is not None else resolve_device(device)
+        self.is_main = self.dp is None or self.dp.is_main
+        # --random_size batches come as (pixel, jittered pixel) halves (data/rays.py)
+        self._paired = opt.random_size > 0 and opt.patch_size <= 1
         self.workspace = workspace
         self.ema_decay = ema_decay
         self.eval_interval = eval_interval
@@ -234,6 +255,8 @@ class Trainer:
         return self.ema_params if self.ema_decay is not None else self.params
 
     def log(self, *args):
+        if not self.is_main:
+            return
         msg = " ".join(str(a) for a in args)
         if not self.mute:
             print(msg, flush=True)
@@ -242,15 +265,43 @@ class Trainer:
 
     # ------------------------------------------------------------------ training
 
-    def _encode_rand(self, n_rays: int, enc_u=None, enc_lvls=None) -> Optional[EncodeRand]:
+    def _batch_shard(self, n: int) -> Optional[parallel.RayShard]:
+        """This rank's rays of a batch of ``n`` rays; None in one process."""
+        if self.dp is None:
+            return None
+        return self.dp.shard(n, self._paired, max(1, self.opt.patch_size) ** 2)
+
+    def _step_shard(self, n_local: int) -> Optional[parallel.RayShard]:
+        """The shard of the batch whose ``n_local`` rays this rank's step was given."""
+        return None if self.dp is None else self._batch_shard(n_local * self.dp.world)
+
+    @staticmethod
+    def _take(t, shard: Optional[parallel.RayShard]):
+        """This rank's rows of a whole-batch ``t`` (rows per ray: ``t``'s length over the
+        batch's); ``t`` itself in one process."""
+        return t if shard is None or t is None else shard.take(t)
+
+    def _encode_rand(self, n_rays: int, enc_u=None, enc_lvls=None,
+                     shard: Optional[parallel.RayShard] = None) -> Optional[EncodeRand]:
         """The step's encode draws: ``enc_u`` [train_rows, L] / ``enc_lvls`` [K] as given,
         or (both None) drawn from the generator, ``u`` then ``lvls``; None when the spec's
         profile uses none. ``train_rows`` is n_rays * S, or the compact budget with
-        ``--train_compact_frac`` (JAX :178-186)."""
+        ``--train_compact_frac`` (JAX :178-186). On a rank (``shard``), ``n_rays`` is the
+        whole batch's and ``u`` is cut to the rank's rows: its rays' slots, or with the
+        compact budget (budget / n_devices per rank, where JAX has one budget for the
+        batch: ROADMAP C15) the rank's block of the budget's rows."""
         if enc_u is not None or enc_lvls is not None:
-            return EncodeRand(u=enc_u, lvls=enc_lvls)
-        return encode_rand_for(self.generator, self.spec,
-                               train_rows(self.train_settings, n_rays))
+            rand = EncodeRand(u=enc_u, lvls=enc_lvls)
+        else:
+            rand = encode_rand_for(self.generator, self.spec,
+                                   train_rows(self.train_settings, n_rays))
+        if shard is None or rand is None or rand.u is None:
+            return rand
+        if self.train_settings.compact_frac > 0:
+            m = train_rows(self.train_settings, shard.size)
+            rows = (torch.arange(m, device=rand.u.device) + self.dp.rank * m) % rand.u.shape[0]
+            return EncodeRand(u=rand.u[rows], lvls=rand.lvls)
+        return EncodeRand(u=shard.take(rand.u), lvls=rand.lvls)
 
     def _add_overflow(self, out: dict) -> None:
         """Sum the train render's ``compact_overflow`` on the device (read once per epoch
@@ -267,20 +318,28 @@ class Trainer:
         ``-O2``, the encode draws ``enc_u`` / ``enc_lvls`` are drawn from the trainer's
         generator, in this order, when None. With the patch loss the batch is
         ``patch_size``^2-ray patches in ``data/rays.py``'s order.
+
+        On a rank of a ``--n_devices`` run the rays, ``images`` and ``per_ray`` are the
+        rank's shard of the batch, while the draws (given or drawn) are the whole
+        batch's, and the loss is the whole batch's.
         """
-        opt, n, dev = self.opt, rays_o.shape[0], self.device
+        opt, dev = self.opt, self.device
+        shard = self._step_shard(rays_o.shape[0])
+        n = rays_o.shape[0] if shard is None else shard.n
         images = gt_to_color_space(opt, images)
         c = images.shape[-1]
         if c == 4 and self.spec.bg_radius <= 0 and not opt.no_bg:
             if bg is None:
                 bg = torch.rand((n, 3), generator=self.generator, device=dev)
+            bg = self._take(bg, shard)
             gt = images[..., :3] * images[..., 3:] + bg * (1.0 - images[..., 3:])
         else:
             bg = torch.ones((3,), dtype=torch.float32, device=dev)
             gt = images[..., :3]
         if noise is None:
             noise = torch.rand((n,), generator=self.generator, device=dev)
-        rand = self._encode_rand(n, enc_u, enc_lvls)
+        noise = self._take(noise, shard)
+        rand = self._encode_rand(n, enc_u, enc_lvls, shard)
 
         out = render_nerf_train(self.params, self.spec, self.grid_state.bitfield,
                                 rays_o, rays_d, self.train_settings,
@@ -294,19 +353,34 @@ class Trainer:
                 self._rlpips_kernels, out["image"].reshape(-1, ps, ps, 3),
                 gt.reshape(-1, ps, ps, 3))
 
-        self._update(loss)
-        return loss.detach(), per_ray.detach()
+        return self._update(loss), per_ray.detach()
 
-    def _update(self, loss: torch.Tensor, zero_grad_for=()):
-        """Backward, one Adam step at the schedule's lr, EMA. A tensor of
+    def _update(self, loss: torch.Tensor, zero_grad_for=(),
+                param_loss: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Backward, one Adam step at the schedule's lr, EMA; returns the step's loss,
+        ``loss + param_loss``, detached. ``loss`` holds the terms of the batch (means over
+        its rays), ``param_loss`` (optional) those that read only parameters. A tensor of
         ``zero_grad_for`` that got no gradient is stepped with a zero one, so that its
-        Adam step count runs on as optax's single count does."""
+        Adam step count runs on as optax's single count does.
+
+        On a rank, ``loss`` is the rank's shard's: it is scaled by 1/n_devices and
+        ``param_loss`` counted on rank 0 alone, so the gradients summed over the ranks
+        are the whole batch's; the returned loss is summed with them."""
         opt = self.opt
         self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        if self.dp is None:
+            total = loss if param_loss is None else loss + param_loss
+        else:
+            loss = loss / self.dp.world
+            total = loss if param_loss is None or not self.dp.is_main else loss + param_loss
+        total.backward()
         for p in zero_grad_for:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.dp is not None:
+            total = self.dp.reduce_grads(self._trainable(self.params), loss.detach()[None])[0]
+            if param_loss is not None:
+                total = total + param_loss.detach()
         lr = opt.lr * 0.1 ** min(self.opt_step / opt.iters, 1.0)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
@@ -317,6 +391,7 @@ class Trainer:
                 ema, cur = self._trainable(self.ema_params), self._trainable(self.params)
                 torch._foreach_mul_(ema, self.ema_decay)
                 torch._foreach_add_(ema, cur, alpha=1.0 - self.ema_decay)
+        return total.detach()
 
     _field_density = staticmethod(nerf_density)
 
@@ -367,12 +442,13 @@ class Trainer:
         else:
             losses = self._device_epoch(train_ds)
         avg = float(torch.stack(losses).mean())
-        check_refused()  # the host has just waited for the device: rows the kernel refused
+        self._check_refused()  # the host has just waited for the device
         self.stats["loss"].append(avg)
         self.stats.setdefault("epoch_seconds", []).append(time.time() - t0)
         note = self._epoch_note()
         if self._overflow is not None:
-            dropped = int(self._overflow)
+            dropped = int(self._overflow if self.dp is None
+                          else self.dp.all_reduce_(self._overflow.clone()))
             self.stats.setdefault("compact_overflow", []).append(dropped)
             note += f", compact overflow {dropped}"
         self.log(f"[epoch {self.epoch}] loss={avg:.6f} ({len(losses)} steps, "
@@ -381,6 +457,13 @@ class Trainer:
 
     def _epoch_note(self) -> str:
         return ""
+
+    def _check_refused(self) -> None:
+        """Raise for rows the scatter kernel refused since the last check, on any rank."""
+        if self.dp is None:
+            return check_refused()
+        return check_refused(reduce=lambda n: int(self.dp.all_reduce_(
+            torch.tensor([n], dtype=torch.int64, device=self.device))))
 
     def _upload(self, train_ds):
         """Move the training images and poses to the device once per dataset."""
@@ -403,6 +486,7 @@ class Trainer:
                 self.refresh_grid()
             inds = torch.randint(0, H * W, (self.opt.num_rays,), generator=self.generator,
                                  device=self.device)
+            inds = self._take(inds, self._batch_shard(self.opt.num_rays))
             pix = self._dev_images[idx][inds]
             rays_o, rays_d = gen_rays_torch(self._dev_poses[idx], intr, H, W, inds)
             loss, _ = self.train_step(rays_o, rays_d, pix)
@@ -422,6 +506,9 @@ class Trainer:
             losses.append(loss)
             self.global_step += 1
             if "inds_coarse" in data:
+                if self.dp is not None:  # every rank updates its map from every rank's rows
+                    per_ray = self.dp.gather_rows(
+                        per_ray, self._batch_shard(len(data["inds_coarse"])))
                 train_ds.update_error_map(data["index"], data["inds_coarse"],
                                           per_ray.cpu().numpy())
         return losses
@@ -459,9 +546,20 @@ class Trainer:
             bg_color, dtype=torch.float32, device=self.device)
         params = self.eval_params()
         bitfield = self._eval_bitfield()
-        outs = [self._render_chunk(params, bitfield, rays_o[start:start + chunk].to(self.device),
-                                   rays_d[start:start + chunk].to(self.device), bg)
-                for start in range(0, rays_o.shape[0], chunk)]
+
+        def render(start):
+            return self._render_chunk(params, bitfield, rays_o[start:start + chunk].to(self.device),
+                                      rays_d[start:start + chunk].to(self.device), bg)
+
+        starts = range(0, rays_o.shape[0], chunk)
+        if self.dp is not None:  # whole chunks, chunk k on rank k mod n_devices
+            starts = starts[self.dp.rank::self.dp.world]
+        outs = [render(start) for start in starts]
+        if self.dp is not None:
+            # a rank without a chunk of its own (a frame of fewer chunks than ranks)
+            # renders the first one for the outputs' layout, and writes nothing of it
+            layout = outs[0] if outs else render(0)
+            outs = [self._gather_chunks(layout, starts, outs, rays_o.shape[0])]
         dropped = [o.pop("compact_overflow") for o in outs if "compact_overflow" in o]
         frame = {k: torch.cat([o[k] for o in outs]).cpu().numpy() for k in outs[0]}
         if dropped:
@@ -470,6 +568,24 @@ class Trainer:
                 self.log(f"[WARN] compact budget overflow: {self.last_compact_overflow} "
                          "valid samples dropped this frame — raise eval_compact_frac")
         return frame
+
+    def _gather_chunks(self, layout: dict, starts, outs: list, n: int) -> dict:
+        """The whole frame's outputs on every rank, from every rank's chunks (``outs``, at
+        rows ``starts``): each rank writes its chunks at their rows of a zero frame on its
+        device, and an all-reduce sums the frames (exact: each row is zero on every rank
+        but one). The dropped-sample counts are summed."""
+        full = {}
+        for k, v in layout.items():
+            if k == "compact_overflow":
+                acc = torch.zeros_like(v)
+                for o in outs:
+                    acc += o[k]
+            else:
+                acc = v.new_zeros((n, *v.shape[1:]))
+                for start, o in zip(starts, outs):
+                    acc[start:start + o[k].shape[0]] = o[k]
+            full[k] = self.dp.all_reduce_(acc)
+        return full
 
     def _render_chunk(self, params, bitfield, rays_o, rays_d, bg):
         return render_nerf_eval(params, self.spec, bitfield, rays_o, rays_d,
@@ -540,12 +656,15 @@ class Trainer:
             losses.append(self._batch_step(data)[0])
             self.global_step += 1
         loss = float(torch.stack(losses).mean())
-        check_refused()  # the host has just waited for the device
+        self._check_refused()  # the host has just waited for the device
         lr = float(self.opt.lr * 0.1 ** min(self.global_step / self.opt.iters, 1.0))
         return {"loss": loss, "lr": lr, "time": time.time() - t0}
 
-    def _batch(self, data: dict, key: str) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(data[key], np.float32), device=self.device)
+    def _batch(self, data: dict, key: str, dtype=np.float32) -> torch.Tensor:
+        """A per-ray array of a collated batch on the device: this rank's rows of it."""
+        a = np.asarray(data[key], dtype)
+        return torch.as_tensor(self._take(a, self._batch_shard(len(data["rays_o"]))),
+                               device=self.device)
 
     def _batch_step(self, data: dict, **draws):
         """One optimizer step from a collated batch; returns (loss, per_ray), detached.
@@ -606,6 +725,8 @@ class Trainer:
         queries and the move to the host) and of the host's marching tetrahedra."""
         from ..utils.mcubes import marching_tetrahedra, write_ply
 
+        if not self.is_main:
+            return None
         save_path = save_path or os.path.join(
             self.workspace, "meshes", f"{self.name}_{self.epoch}.ply")
         os.makedirs(os.path.dirname(save_path), exist_ok=True)
@@ -621,14 +742,17 @@ class Trainer:
         self.log(f"[save_mesh] {len(verts)} verts, {len(faces)} faces -> {save_path}")
         return save_path
 
-    @staticmethod
-    def _save_image(path: str, img01: np.ndarray):
+    def _save_image(self, path: str, img01: np.ndarray):
+        if not self.is_main:
+            return  # rank 0 writes the images of a --n_devices run
         os.makedirs(os.path.dirname(path), exist_ok=True)
         write_png(path, (np.clip(img01, 0, 1) * 255).astype(np.uint8))
 
     # ------------------------------------------------------------------ checkpoints
 
-    def save_checkpoint(self, best: bool = False) -> str:
+    def save_checkpoint(self, best: bool = False) -> Optional[str]:
+        if not self.is_main:
+            return None  # rank 0 writes the checkpoints of a --n_devices run
         payload = {"epoch": self.epoch, "global_step": self.global_step, "stats": self.stats}
         if best:
             # the best checkpoint holds the EMA weights only (nerf/utils.py:1134-1136)

@@ -24,6 +24,7 @@ import importlib
 import os
 import sys
 import types
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -103,6 +104,23 @@ def _assert_palette_params_close(tparams, jtree, atol):
             assert int((diff > atol).sum()) <= allowed, (k, i, float(diff.max()))
 
 
+def _port_tree(tree):
+    return tckpt.palette_params_from_jax(jax.tree_util.tree_map(np.asarray, tree))
+
+
+def _adopt_jax_state(ttr, jtr):
+    """The port takes the JAX trainer's parameters, EMA and Adam state (moments, count)
+    as they are, so that its next step starts where the JAX one does."""
+    ttr._set_params(_port_tree(jtr.params), _port_tree(jtr.ema_params))
+    adam = next(s for s in jtr.opt_state if hasattr(s, "mu"))
+    count = int(adam.count)
+    for p, m, v in zip(ttr._trainable(ttr.params), ttr._trainable(_port_tree(adam.mu)),
+                       ttr._trainable(_port_tree(adam.nu))):
+        ttr.optimizer.state[p] = {"step": torch.tensor(float(count)), "exp_avg": m,
+                                  "exp_avg_sq": v}
+    ttr.opt_step = count
+
+
 # --------------------------------------------------------------------------- fixtures
 
 @pytest.fixture(scope="module")
@@ -140,11 +158,16 @@ def pair(scene, tmp_path_factory):
     ttr.grid_state = ttr.grid_state._replace(bitfield=torch.full_like(ttr.grid_state.bitfield, 255))
 
     ds = JPaletteDataset(jcfg, type="train")
+    # the JAX dataset seeds its sampler with the salted str hash of its type, which differs
+    # from process to process; seed it as the port's dataset seeds itself
+    ds.rng = np.random.default_rng(jcfg.seed + zlib.crc32(b"train") % 2 ** 16)
     steps = []
     for tr in (jtr, ttr):
         tr.freeze_basis_color, tr.require_smooth_loss = False, True
         tr.lambda_weight, tr.lambda_palette = 0.05, 1e-3
     for i in range(2):
+        if i:  # each step from the same state: the second one from JAX's after the first
+            _adopt_jax_state(ttr, jtr)
         data = ds.collate(i)
         key = jax.random.PRNGKey(10 + i)
         loss_j = jtr._gui_train_step(data, key)
@@ -153,8 +176,7 @@ def pair(scene, tmp_path_factory):
         steps.append((loss_j, float(loss_t)))
     steps.append(ttr.params)
     steps.append(jtr.params)
-    ttr._set_params(*(tckpt.palette_params_from_jax(jax.tree_util.tree_map(np.asarray, t))
-                      for t in (jtr.params, jtr.ema_params)))
+    ttr._set_params(*(_port_tree(t) for t in (jtr.params, jtr.ema_params)))
     for tr in (jtr, ttr):
         tr.require_smooth_loss = False
     return jtr, ttr, steps

@@ -522,12 +522,13 @@ def test_initialize_palette_restarts_optimizer_and_schedule_count(tmp_path):
     assert torch.equal(ttr.ema_params["basis_color"], T(BC[::-1]))
     assert ttr.params["basis_color"].requires_grad and not ttr.params["hist_weights"].requires_grad
     # patches construct (host-sampled epochs, no LPIPS term in this stage); several
-    # devices still raise
+    # devices train in spawned ranks (tests/test_torch_parallel.py), so a trainer for them
+    # outside a rank raises
     patched = TPaletteTrainer("palette", TConfig(**dict(CFG_KW, patch_size=2, lambda_lpips=0.1)),
                               tspec, workspace=str(tmp_path), use_checkpoint="scratch", mute=True,
                               device="cpu")
     assert patched.host_sampled() and patched._rlpips_kernels is None
-    with pytest.raises(NotImplementedError, match="n_devices"):
+    with pytest.raises(RuntimeError, match="n_devices"):
         TPaletteTrainer("palette", TConfig(**dict(CFG_KW, n_devices=2)), tspec,
                         workspace=str(tmp_path), use_checkpoint="scratch", mute=True, device="cpu")
 

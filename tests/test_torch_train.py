@@ -183,9 +183,11 @@ def test_main_nerf_cli_on_cpu(sphere_scene, tmp_path, monkeypatch):
     verts, faces = read_ply(tmp_path / "results" / "workspace" / "version_1" / "meshes" /
                             f"ngp_{tr.epoch}.ply")
     assert np.abs(verts).max(initial=0.0) <= 1.0 and faces.max(initial=-1) < len(verts)
-    # options of paths that are not ported yet still raise (-O2: test_torch_recipes.py)
-    with pytest.raises(NotImplementedError, match="n_devices"):
-        tmain.main(argv + ["--n_devices", "2"], device="cpu")
+    # several devices run in spawned ranks (tests/test_torch_parallel.py); a batch that
+    # does not split into them raises before any starts (JAX's num_rays % n_devices)
+    with pytest.raises(ValueError, match="n_devices"):
+        tmain.main(argv + ["--n_devices", "3"], device="cpu")
+    # the option whose path is not ported still raises (-O2: test_torch_recipes.py)
     with pytest.raises(NotImplementedError, match="rand_pose"):
         tmain.main(argv + ["--rand_pose", "0"], device="cpu")
     # the options this CLI runs since the background net, the patch loss and the linear
