@@ -9,8 +9,8 @@ Phases (each raises on failure; the script then exits non-zero):
 
 1. device: prints the card's name and power limit (nvidia-smi); TF32 off.
 2. build: compiles every CUDA kernel from ``palettenerf_torch/csrc``, one ``nvcc``
-   per source, and the extraction's C++ library (``palettenerf_torch/native``) with
-   ``g++``, all started together.
+   per source, and the host C++ libraries (``palettenerf_torch/native``: the extraction's
+   kernels and the JPEG decoder) with ``g++``, all started together.
 3. kernels: holds each kernel against its plain PyTorch version on the card, at the
    shapes its path gives it and at edge cases, and times kernel, plain version and the
    one PyTorch call that computes the same function. ``scatter_add`` is held and timed
@@ -117,6 +117,18 @@ the training views (``--extract_palette --extract_via_sweep``), then 300 palette
     per schedule phase, workspace ``results_palette/chip_smoke/version_2``) with the
     CLI's test tail and one validation view; then a 16-step ``train_burst`` of an
     ``EditingSession`` on its ``--test`` trainer.
+
+13. real scene: the Mip-NeRF 360 recipe (``scripts/run_mip360.sh``, ``configs_mip360/
+    bonsai.sh``) on the LLFF-layout JPEG fixture ``data_proc/proc_toys_llff`` at full width:
+    every image through the native JPEG decoder against ``decoded.json`` (ms per
+    megapixel) and the provider's load; ``main_nerf.main`` with ``-O --bound 2`` (two
+    occupancy cascades) ``--no_bg --filter_close_point``, iters cut from 90,000 to 300
+    (308 steps), with the test tail and a 128^3 mesh: steps/s beside the one-cascade
+    ``-O`` path's, occupied cells per cascade, eval s/frame at 333x250, val PSNR; B1 held
+    and timed on the stream one step's real cotangents give it; the per-ray extraction
+    (``--extract_palette`` without ``--extract_via_sweep``) with its time by phase; 308
+    palette steps with ``--datatype mip360`` and the test tail (val PSNR, peak memory).
+    ``python3 chip_smoke.py --real-scene-only`` builds and runs this phase alone.
 
 Launch counts are zeroed just before each main path and read just after (the data-parallel
 ranks count in their own processes and report them); every kernel of the train, palette
@@ -275,6 +287,28 @@ DP_EPOCHS = 5               # 100 steps: parameters, EMA and bitfield equal acro
 DP_FIRST_RTOL = 1e-5        # the first step's loss: the same rays, the means in another order
 DP_TRAJ_RTOL = 2e-3         # the first DP_VIEWS steps' losses (tests/test_trainer_dp_resume.py)
 DP_TIMEOUT_S = 300.0        # the two ranks' deadline
+# the Mip-NeRF 360 recipe (scripts/run_mip360.sh with configs_mip360/bonsai.sh) on the
+# LLFF-layout JPEG fixture, iters cut from 90,000 to 300
+LLFF_SCENE = os.path.join(ROOT, "data_proc", "proc_toys_llff")
+REAL_NERF_WS = os.path.join("results", "chip_smoke_real", "version_1")
+REAL_COMMON = ["--bound", "2", "--scale", "0.16", "--bg_radius", "0", "--density_thresh", "10",
+               "--min_near", "0.2"]
+REAL_NERF_ARGS = [LLFF_SCENE, "--workspace", "chip_smoke_real", "--iters", "300", "-O",
+                  "--offset", "0", "0", "0", "--lambda_sparse", "0", "--no_bg",
+                  "--filter_close_point"] + REAL_COMMON
+REAL_EXTRACT_ARGS = [LLFF_SCENE, REAL_NERF_WS, "-O", "--extract_palette",
+                     "--use_normalized_palette"] + REAL_COMMON
+REAL_PALETTE_ARGS = [LLFF_SCENE, REAL_NERF_WS, "-O", "--iters", "300", "--offset", "0", "0",
+                     "0", "--random_size", "0", "--use_initialization_from_rgbxy",
+                     "--use_normalized_palette", "--datatype", "mip360"] + REAL_COMMON
+REAL_MESH_RESOLUTION = 128  # the CLI's mesh tail at 128^3 (host time)
+# validation view 0 (333x250) after 308 steps, stage 1 and then the palette: set from the
+# first card run (8.535 and 7.390 dB) with ~1 dB margin. At this depth the field is poor
+# (the all-white frame scores 7.59 dB on that view): the train step's 64 slots reach only
+# t ~0.42 from min_near 0.2 through every cell the cameras see, the cameras 0.64 from the
+# centre (ROADMAP C16)
+REAL_PSNR_FLOOR = 7.5
+REAL_PALETTE_PSNR_FLOOR = 6.4
 
 
 def log(msg: str) -> None:
@@ -648,11 +682,11 @@ def phase_main_path(torch, dev):
     return launches, phase_path_stream(torch, trainer, train_ds), train_ds, trainer, val_psnr
 
 
-def march_train_batch(torch, trainer, train_ds, seed, inds=None):
+def march_train_batch(torch, trainer, train_ds, seed, inds=None, bitfield=None):
     """One train batch as the train step marches it: 4096 random pixels of training view
-    0 (or its pixels ``inds``) through the trainer's occupancy grid, jittered, 64 sample
-    slots per ray. Returns (the march, the sample positions in [0, 1]^3 [N*S, 3], the
-    generator drawn from)."""
+    0 (or its pixels ``inds``) through the trainer's occupancy grid (or ``bitfield``),
+    jittered, 64 sample slots per ray. Returns (the march, the sample positions in [0, 1]^3
+    [N*S, 3], the generator drawn from)."""
     from palettenerf_torch.data.rays import gen_rays_torch
     from palettenerf_torch.ops.rays import near_far_from_aabb
     from palettenerf_torch.render.nerf_renderer import _aabb, _march
@@ -667,7 +701,8 @@ def march_train_batch(torch, trainer, train_ds, seed, inds=None):
                                     [float(v) for v in train_ds.intrinsics], train_ds.H,
                                     train_ds.W, inds)
     nears, fars = near_far_from_aabb(rays_o, rays_d, _aabb(st, dev), st.min_near)
-    m = _march(rays_o, rays_d, nears, fars, trainer.grid_state.bitfield, st, st.num_samples,
+    bitfield = trainer.grid_state.bitfield if bitfield is None else bitfield
+    m = _march(rays_o, rays_d, nears, fars, bitfield, st, st.num_samples,
                torch.rand((n,), generator=gen, device=dev))
     return m, (m.xyzs.reshape(-1, 3) + st.bound) / (2.0 * st.bound), gen
 
@@ -2625,10 +2660,235 @@ def phase_bg_linear_palette(torch, dev):
     return launches, info
 
 
+def phase_real_scene(torch, dev, o_steps_per_s=None):
+    """The Mip-NeRF 360 recipe on the LLFF-layout JPEG fixture ``data_proc/proc_toys_llff``
+    at full width, through the CLIs: every image through the native JPEG decoder against
+    ``decoded.json`` (ms per megapixel; the provider's load in seconds); stage 1 with
+    ``-O --bound 2`` (two cascades) ``--no_bg --filter_close_point`` for 308 steps with the
+    test tail and a 128^3 mesh (steps/s, each cascade's occupied cells, eval s/frame at
+    333x250, val PSNR); B1 held and timed on the stream one step's real cotangents give it;
+    the per-ray extraction (``--extract_palette`` without ``--extract_via_sweep``) with its
+    time by phase; 308 palette steps with ``--datatype mip360`` and the test tail (val PSNR,
+    peak memory). Returns (stage-1 launches, palette launches, the B1 stream's numbers,
+    what was measured)."""
+    import hashlib
+    import shutil
+
+    import numpy as np
+
+    from palettenerf_torch import main_nerf, main_palette, native
+    from palettenerf_torch.config import Config
+    from palettenerf_torch.data.provider import NeRFDataset
+    from palettenerf_torch.data.rays import gen_rays_torch
+    from palettenerf_torch.models.nerf import param_list
+    from palettenerf_torch.ops import hashgrid_fast, scatter
+    from palettenerf_torch.ops.occupancy import init_grid_state, mark_untrained_grid, packbits
+    from palettenerf_torch.train.metrics import psnr
+
+    res = {}
+    # -------------------------------------------------------------- decode
+    with open(os.path.join(LLFF_SCENE, "decoded.json")) as f:
+        digests = json.load(f)["sha256"]
+    blobs = {}
+    for rel in digests:
+        with open(os.path.join(LLFF_SCENE, rel), "rb") as f:
+            blobs[rel] = f.read()
+    native.IMAGE_LIBRARY.get()
+    t0 = time.perf_counter()
+    images = {rel: native.decode_jpeg(b, rel) for rel, b in blobs.items()}
+    decode_s = time.perf_counter() - t0
+    megapixels = sum(im.shape[0] * im.shape[1] for im in images.values()) / 1e6
+    bad = [rel for rel, im in images.items()
+           if hashlib.sha256(im.tobytes()).hexdigest() != digests[rel]]
+    if bad or len(images) != 32:
+        raise AssertionError(f"decoded images differ from decoded.json: {bad}")
+    cfg = Config.from_args(main_nerf.build_parser().parse_args(REAL_NERF_ARGS))
+    t0 = time.perf_counter()
+    loaded = [NeRFDataset(cfg, type=split) for split in ("train", "val", "test")]
+    res["provider_load_s"] = time.perf_counter() - t0
+    res["decode_ms_per_mp"] = decode_s * 1e3 / megapixels
+    n_views = len(loaded[0])
+    log(f"real scene: {len(images)} JPEGs ({megapixels:.1f} MP) decoded in {decode_s:.3f} s, "
+        f"{res['decode_ms_per_mp']:.2f} ms/MP, every digest equal to decoded.json; the "
+        f"provider loads train/val/test ({n_views}/{len(loaded[1])}/{len(loaded[2])} views, "
+        f"{loaded[0].W}x{loaded[0].H}) in {res['provider_load_s']:.2f} s")
+    del loaded, images, blobs
+
+    # -------------------------------------------------------------- stage 1 main path
+    shutil.rmtree(os.path.join(ROOT, "results", "chip_smoke_real"), ignore_errors=True)
+    shutil.rmtree(os.path.join(ROOT, "results_palette", "chip_smoke_real"), ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    trainer = main_nerf.main(REAL_NERF_ARGS, device=dev, mesh_resolution=REAL_MESH_RESOLUTION)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses, secs = trainer.stats["loss"], trainer.stats["epoch_seconds"]
+    meters = {m.name: m.measure() for m in trainer.metrics}
+    steps_per_s = n_views * (len(secs) - 1) / sum(secs[1:])
+    bits = np.unpackbits(trainer.grid_state.bitfield.cpu().numpy(), bitorder="little")
+    occupied = [int(v) for v in bits.reshape(trainer.grid_state.density_grid.shape[0], -1)
+                .sum(1)]
+    valid_ds = NeRFDataset(cfg, type="val")
+    data = valid_ds.collate(0)
+    trainer.eval_step_full(data)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = trainer.eval_step_full(data)
+    eval_s = time.perf_counter() - t0
+    val_psnr = psnr(out["image"], data["images"][..., :3])
+    white_psnr = psnr(np.ones_like(out["image"]), data["images"][..., :3])
+    res.update(steps_per_s=steps_per_s, white_frame_psnr=white_psnr, o_steps_per_s=o_steps_per_s, occupied_cells=occupied,
+               eval_s=eval_s, val_psnr=val_psnr, test_meters=meters, stage1_total_s=total_s,
+               stage1_peak_gib=peak_gb)
+    log(f"real scene stage 1: {trainer.global_step} steps in {total_s:.1f} s with the test "
+        f"tail and the {REAL_MESH_RESOLUTION}^3 mesh; epoch losses "
+        f"{['%.5f' % v for v in losses]}; {steps_per_s:.2f} steps/s (epochs 2-{len(secs)}; "
+        f"one-cascade -O path in this run: {o_steps_per_s}); occupied cells per cascade "
+        f"{occupied} of {bits.size // len(occupied)}; eval {eval_s:.3f} s/frame "
+        f"({data['W']}x{data['H']}); val PSNR {val_psnr:.3f} dB (an all-white frame "
+        f"{white_psnr:.3f}); test meters {meters}; peak "
+        f"memory {peak_gb:.2f} GiB; launches {launches}")
+    if trainer.spec.bound != 2.0 or len(occupied) != 2 or not all(occupied):
+        raise AssertionError(f"bound {trainer.spec.bound}, occupied cells {occupied}")
+    if trainer.global_step != n_views * len(secs) or trainer.global_step < 300:
+        raise AssertionError(f"{trainer.global_step} steps in {len(secs)} epochs")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"real-scene loss did not fall: {losses}")
+    if launches["scatter_add"] != trainer.global_step:
+        raise AssertionError(f"scatter_add launched {launches['scatter_add']} times in "
+                             f"{trainer.global_step} steps")
+    if not all(bool(torch.isfinite(p).all()) for p in param_list(trainer.params)) or \
+            not all(np.isfinite(v).all() for v in out.values()):
+        raise AssertionError("non-finite parameters or render")
+    if out["image"].shape != (250, 333, 3):
+        raise AssertionError(f"render shape {out['image'].shape}")
+    if not val_psnr > REAL_PSNR_FLOOR:
+        raise AssertionError(f"real-scene validation PSNR {val_psnr:.3f} dB <= floor "
+                             f"{REAL_PSNR_FLOOR}")
+
+    # how far the train step's 64 slots reach (median over the rays of one batch of view 0
+    # of the last slot's t): through every cell the cameras see, as before the grid prunes,
+    # and through the trained grid
+    train_ds = NeRFDataset(cfg, type="train")
+    seen = mark_untrained_grid(init_grid_state(len(occupied), cfg.grid_size, dev),
+                               torch.as_tensor(train_ds.poses), train_ds.intrinsics, cfg.bound,
+                               cfg.min_near, cfg.filter_close_point, cfg.grid_size)
+    reach = {}
+    for name, bitfield in (("seen cells", packbits(seen.density_grid.reshape(-1) >= 0)),
+                           ("trained grid", trainer.grid_state.bitfield)):
+        m, _, _ = march_train_batch(torch, trainer, train_ds, 5, bitfield=bitfield)
+        reach[name] = float(m.ts.amax(1)[m.mask.any(1)].median())
+    res.update(camera_distance=train_ds.radius, median_reach_t=reach)
+    log(f"real scene: cameras {train_ds.radius:.3f} from the centre; the train step's "
+        f"{cfg.train_samples_per_ray} slots reach t = {reach} (median; min_near {cfg.min_near})")
+
+    # -------------------------------------------------------------- B1 on this stream
+    # one more train step on 4096 pixels of training view 0, its scatter call kept: the
+    # rows and bf16 cotangents of a two-cascade backward
+    kernel, stream = hashgrid_fast.scatter_add, {}
+
+    def keep(idx, vals, total_rows, period=None):
+        stream.update(idx=idx, vals=vals, total=total_rows, period=period)
+        return kernel(idx, vals, total_rows, period)
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    inds = torch.randint(0, train_ds.H * train_ds.W, (cfg.num_rays,), generator=gen, device=dev)
+    rays_o, rays_d = gen_rays_torch(torch.as_tensor(train_ds.poses[0]).to(dev),
+                                    [float(v) for v in train_ds.intrinsics], train_ds.H,
+                                    train_ds.W, inds)
+    pixels = torch.as_tensor(train_ds.images[0]).to(dev).reshape(-1, 3)[inds]
+    hashgrid_fast.scatter_add = keep
+    try:
+        trainer.train_step(rays_o, rays_d, pixels)
+    finally:
+        hashgrid_fast.scatter_add = kernel
+    torch.cuda.synchronize()
+    idx, vals, total, period = (stream[k] for k in ("idx", "vals", "total", "period"))
+    spec = trainer.spec.grid  # 16 levels x 2^19 rows at most: 6,328,848 rows at bound 2
+    if period != SCATTER_PERIOD or total != spec.total_params:
+        raise AssertionError(f"real-scene stream: period {period}, {total} rows")
+    max_err, _ = check_scatter(torch, scatter, idx, vals, total, "real-scene stream", period)
+    stream_stats(torch, spec, idx, vals, "real-scene")
+    t = time_scatter(torch, scatter, idx, vals, total, "real-scene")
+    U, C = idx.numel(), vals.shape[1]
+    n_bytes = U * (4 + 2 * C) + total * C * 4
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, U * C / FP32_FLOPS * 1e3
+    nonzero = float((vals != 0).any(-1).float().mean())
+    t.update(U=U, max_abs_err=max_err, nonzero_share=nonzero, bound_ms=max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations")
+    log(f"scatter_add on the real-scene stream: U={U}, {100 * nonzero:.2f}% of the updates "
+        f"non-zero, bound {t['bound_ms']:.4f} ms ({n_bytes / 1e6:.1f} MB)")
+    del trainer, train_ds, stream, idx, vals
+
+    # -------------------------------------------------------------- per-ray extraction
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    extractor = main_palette.main(REAL_EXTRACT_ARGS, device=dev)
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    stats, timer = extractor.extract_stats, extractor.extract_timer
+    pal_ws = extractor.workspace
+    del extractor
+    palette = np.load(os.path.join(pal_ws, "palette.npz"))["palette"]
+    hist = np.load(os.path.join(pal_ws, "hist_weights.npz"))["hist_weights"]
+    P = palette.shape[0]
+    res.update(extract_s=extract_s, extract_split=dict(timer.totals), palette_size=P,
+               foreground_samples=stats["foreground_samples"])
+    log(f"real scene per-ray extraction: {extract_s:.1f} s (checkpoint and data load "
+        f"included), P = {P}, {stats['foreground_samples']} foreground samples; by phase:\n"
+        + timer.report())
+    if "per-ray render" not in timer.totals or "bake" in timer.totals:
+        raise AssertionError(f"extraction phases {list(timer.totals)}: not the per-ray route")
+    if not 4 <= P <= 8 or palette.min() < 0.0 or palette.max() > 1.0:
+        raise AssertionError(f"extracted palette: {P} colors in [{palette.min()}, "
+                             f"{palette.max()}]")
+    if hist.shape != (32, 32, 32, P) or hist.min() < -1e-12 \
+            or np.abs(hist.sum(-1) - 1.0).max() > 1e-6:
+        raise AssertionError(f"hist_weights {hist.shape}")
+
+    # -------------------------------------------------------------- palette main path
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    trainer = main_palette.main(REAL_PALETTE_ARGS, device=dev)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    palette_launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    scatter.check_refused()
+    losses, secs = trainer.stats["loss"], trainer.stats["epoch_seconds"]
+    out = trainer.eval_step_full(data)
+    pal_psnr = psnr(out["image"], data["images"][..., :3])
+    res.update(palette_steps_per_s=[n_views / s for s in secs], palette_val_psnr=pal_psnr,
+               palette_peak_gib=peak_gb, palette_total_s=total_s)
+    log(f"real scene palette: {trainer.global_step} steps in {total_s:.1f} s with the test "
+        f"tail; epoch losses {['%.5f' % v for v in losses]}; steps/s per epoch "
+        f"{['%.2f' % (n_views / s) for s in secs]}; val PSNR {pal_psnr:.3f} dB; peak memory "
+        f"{peak_gb:.2f} GiB; launches {palette_launches}")
+    if trainer.global_step < 300 or not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"real-scene palette: {trainer.global_step} steps, losses {losses}")
+    if palette_launches["scatter_add"] < trainer.global_step:
+        raise AssertionError(f"scatter_add launched {palette_launches['scatter_add']} times in "
+                             f"{trainer.global_step} palette steps")
+    if not all(np.isfinite(v).all() for v in out.values()):
+        raise AssertionError("non-finite palette render")
+    if not pal_psnr > REAL_PALETTE_PSNR_FLOOR:
+        raise AssertionError(f"real-scene palette validation PSNR {pal_psnr:.3f} dB <= floor "
+                             f"{REAL_PALETTE_PSNR_FLOOR}")
+    return launches, palette_launches, t, res
+
+
 def main() -> int:
     dp_only = sys.argv[1:] == ["--dp-only"]
-    if sys.argv[1:] and not dp_only:
-        print("usage: python3 chip_smoke.py [--dp-only]", file=sys.stderr)
+    real_only = sys.argv[1:] == ["--real-scene-only"]
+    if sys.argv[1:] and not (dp_only or real_only):
+        print("usage: python3 chip_smoke.py [--dp-only | --real-scene-only]", file=sys.stderr)
         return 2
     if not os.path.isdir(os.path.join(ROOT, "palettenerf_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -2657,13 +2917,13 @@ def main() -> int:
     from palettenerf_torch.ops import scatter, window_gather
 
     t0 = time.perf_counter()
-    libs = [scatter.LIBRARY, window_gather.LIBRARY, native.LIBRARY]
+    libs = [scatter.LIBRARY, window_gather.LIBRARY, native.LIBRARY, native.IMAGE_LIBRARY]
     with ThreadPoolExecutor(len(libs)) as pool:  # one compiler per source, all at once
         for f in [pool.submit(lib.build) for lib in libs]:
             f.result()
     log(f"build: {', '.join(os.path.basename(lib.source) for lib in libs)} in "
-        f"{time.perf_counter() - t0:.1f} s (in parallel; the extraction's C++ with: "
-        f"{' '.join(native.LIBRARY.build_command)})")
+        f"{time.perf_counter() - t0:.1f} s (in parallel; the host C++ with: "
+        f"{' '.join(native.LIBRARY.build_command[:-1])})")
     for lib in libs[:2]:
         if lib.build_log:
             log(f"nvcc -Xptxas -v ({lib.name}):\n" + lib.build_log.strip())
@@ -2673,6 +2933,12 @@ def main() -> int:
         log(f"data-parallel phase passed in {time.perf_counter() - t_start:.1f} s")
         print(nvidia_smi())
         print(json.dumps({"dp": dp}, default=float))
+        return 0
+    if real_only:
+        _, _, stream, real = phase_real_scene(torch, dev)
+        log(f"real-scene phase passed in {time.perf_counter() - t_start:.1f} s")
+        print(nvidia_smi())
+        print(json.dumps({"real_scene": real, "real_scene_stream": stream}, default=float))
         return 0
     kernels = phase_kernels(torch, dev)
     wg_entry = phase_window_gather(torch, dev)
@@ -2694,10 +2960,14 @@ def main() -> int:
     del train_ds
     phase_edit_reference(torch, dev)
     edit_launches = phase_edit(torch, dev, stage1)
+    secs = stage1.stats["epoch_seconds"]
+    o_steps_per_s = n_views * (len(secs) - 1) / sum(secs[1:])  # as the real-scene phase's
     del stage1
     compact_palette, compact_edit = phase_compact_palette(torch, dev)
     o2_palette_launches, o2_edit_launches, o2_palette = phase_o2_palette(
         torch, dev, o_palette_psnr, n_views)
+    real_launches, real_palette_launches, real_stream, real = phase_real_scene(
+        torch, dev, o_steps_per_s)
     for k in kernels:
         k["path"] = ("train, palette, edit, train-O2, palette-O2, edit-O2, train-compact, "
                      "train-bg-patch, palette-bg-linear")
@@ -2719,6 +2989,10 @@ def main() -> int:
         k["dp_launches_per_rank"] = dp_launches[k["name"]]
         k["dp_stream"] = dp_stream_times
         k["path"] += ", train-dp"
+        k["real_scene_launches"] = real_launches[k["name"]]
+        k["palette_real_scene_launches"] = real_palette_launches[k["name"]]
+        k["real_scene_stream"] = real_stream
+        k["path"] += ", train-real-scene, palette-real-scene"
     wg_entry["dp_launches_per_rank"] = dp_launches[wg_entry["name"]]
     kernels.append(wg_entry)
     log("compaction summary: " + json.dumps({
@@ -2730,6 +3004,7 @@ def main() -> int:
                                                 "palette_bg_linear": bg_palette}))
     log("data-parallel and extraction summary: " + json.dumps(
         {"dp": dp, "extraction": extract_split}, default=float))
+    log("real-scene summary: " + json.dumps(real, default=float))
     phase_serve_reference(torch, dev)
     phase_serve(torch, dev, palette_ws)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")

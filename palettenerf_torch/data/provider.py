@@ -13,22 +13,23 @@ Capability port of the reference ``nerf/provider.py`` (NeRFDataset):
 
 Host side is NumPy; ``collate`` returns numpy arrays (ray generation itself is in
 ``data/rays.py``). The PyTorch port's own copy of ``palettenerf_tpu/data/provider.py``:
-images load through the ``zlib``/NumPy PNG reader in ``data/png.py`` instead of cv2,
-and a resize by an integer factor is the block mean that cv2's INTER_AREA computes
-for such factors (other factors raise). The per-split RNG seed uses a stable
-``crc32`` of the split name instead of Python's per-process ``hash``.
+images load through ``data/image.py:read_image`` (the native JPEG decoder and the
+``zlib``/NumPy PNG reader) instead of ``cv2.imread``, and ``area_resize`` computes what
+``cv2.resize(..., INTER_AREA)`` computes for any shrink. The per-split RNG seed uses a
+stable ``crc32`` of the split name instead of Python's per-process ``hash``.
 """
 
 from __future__ import annotations
 
 import glob
 import json
+import math
 import os
 import zlib
 
 import numpy as np
 
-from .png import read_png
+from .image import read_image
 from .rays import gen_rays, sample_ray_indices
 
 
@@ -67,15 +68,67 @@ def rand_poses(rng: np.random.Generator, size: int, radius: float = 1.0,
     return poses
 
 
-def area_downscale(img: np.ndarray, H: int, W: int) -> np.ndarray:
-    """uint8 [h, w, C] -> [H, W, C] by block mean; cv2's INTER_AREA for integer factors."""
+_DBL_EPSILON = float(np.finfo(np.float64).eps)
+
+
+def _area_taps(ssize: int, dsize: int):
+    """cv2's ``computeResizeAreaTab`` for one axis: for each destination index, its
+    (source index, float32 weight) pairs in cv2's summation order."""
+    scale = 1.0 / (dsize / ssize)  # cv2: inv_scale = dsize / ssize, scale = 1 / inv_scale
+    taps = []
+    for d in range(dsize):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, ssize - f1)
+        s2 = min(math.floor(f2), ssize - 1)
+        s1 = min(math.ceil(f1), s2)
+        row = []
+        if s1 - f1 > 1e-3:
+            row.append((s1 - 1, (s1 - f1) / cell))
+        row += [(s, 1.0 / cell) for s in range(s1, s2)]
+        if f2 - s2 > 1e-3:
+            row.append((s2, min(min(f2 - s2, 1.0), cell) / cell))
+        taps.append(row)
+    return taps
+
+
+def _area_rows(x: np.ndarray, taps) -> np.ndarray:
+    """float32 weighted sums over axis 0: each output row adds its taps in order, one
+    float32 multiply and one float32 add per tap, as cv2's ``ResizeArea_Invoker``."""
+    out = np.zeros((len(taps),) + x.shape[1:], np.float32)
+    for k in range(max(len(t) for t in taps)):
+        dst = [d for d, t in enumerate(taps) if len(t) > k]
+        src = [t[k][0] for t in taps if len(t) > k]
+        w = np.array([t[k][1] for t in taps if len(t) > k], np.float32)
+        out[dst] += x[src] * w.reshape((-1,) + (1,) * (x.ndim - 1))
+    return out
+
+
+def area_resize(img: np.ndarray, H: int, W: int) -> np.ndarray:
+    """uint8/uint16 [h, w, C] -> [H, W, C]: ``cv2.resize(img, (W, H), INTER_AREA)`` for
+    any shrink (H <= h, W <= w), fractional and unequal factors included.
+
+    Integer factors on both axes take cv2's fast path: the block sum, rounded as
+    ``(sum + 2) >> 2`` for 2x2 with 1, 3 or 4 channels, else as ``sum * float32(1 /
+    area)`` rounded half to even. Other factors take cv2's area-overlap weights in
+    float32, rows first, then columns. Enlarging raises (cv2 then interpolates
+    bilinearly; no recipe enlarges)."""
     h, w, c = img.shape
-    if h % H or w % W or h // H != w // W:
-        raise ValueError(f"cannot area-resize {h}x{w} to {H}x{W}: only a common "
-                         f"integer downscale factor is supported")
-    f = h // H
-    mean = img.reshape(H, f, W, f, c).astype(np.float64).mean(axis=(1, 3))
-    return np.clip(np.rint(mean), 0, 255).astype(np.uint8)
+    if H > h or W > w or H < 1 or W < 1:
+        raise ValueError(f"area_resize shrinks only: cannot resize {h}x{w} to {H}x{W}")
+    top = np.iinfo(img.dtype).max
+    sy, sx = 1.0 / (H / h), 1.0 / (W / w)  # cv2's scales, and its test for the fast path
+    fy, fx = round(sy), round(sx)
+    if abs(sy - fy) < _DBL_EPSILON and abs(sx - fx) < _DBL_EPSILON:
+        s = img.reshape(H, fy, W, fx, c).astype(np.int64).sum(axis=(1, 3))
+        if fy == fx == 2 and c in (1, 3, 4):
+            out = (s + 2) >> 2
+        else:
+            out = np.rint(s.astype(np.float32) * np.float32(1.0 / (fx * fy)))
+    else:
+        cols = _area_rows(np.ascontiguousarray(img.swapaxes(0, 1), np.float32), _area_taps(w, W))
+        out = np.rint(_area_rows(np.ascontiguousarray(cols.swapaxes(0, 1)), _area_taps(h, H)))
+    return np.clip(out, 0, top).astype(img.dtype)
 
 
 def _slerp(r0: np.ndarray, r1: np.ndarray, t: float) -> np.ndarray:
@@ -199,16 +252,18 @@ class NeRFDataset:
         return poses, images
 
     def _read_image(self, path: str) -> np.ndarray:
-        img = read_png(path)
+        """The JAX loader's rules in its order: 16-bit ``// 256`` when its maximum is over
+        500, gray to three channels, then the area resize to the split's size."""
+        img = read_image(path)
+        if img.dtype == np.uint16 and img.max() > 500:
+            img = (img // 256).astype(np.uint8)
         if self.H is None or self.W is None:
             self.H = img.shape[0] // self.downscale
             self.W = img.shape[1] // self.downscale
         if img.shape[-1] == 1:
             img = img.repeat(3, -1)
-        elif img.shape[-1] == 2:  # gray + alpha -> RGBA
-            img = np.concatenate([img[..., :1].repeat(3, -1), img[..., 1:]], -1)
         if img.shape[0] != self.H or img.shape[1] != self.W:
-            img = area_downscale(img, self.H, self.W)
+            img = area_resize(img, self.H, self.W)
         return img.astype(np.float32) / 255.0
 
     def _load_intrinsics(self, transform) -> np.ndarray:

@@ -1,17 +1,20 @@
-"""The extraction's host-side C++ kernels (``palette_native.cpp``), bound with ctypes.
+"""The host-side C++ kernels, bound with ctypes: the extraction's (``palette_native.cpp``)
+and the JPEG decoder of the data layer (``image_native.cpp``).
 
-The port's counterpart of ``palettenerf_tpu/native/__init__.py``. The source is built
-with ``g++`` at first use into ``palettenerf_torch/build/`` (listed in ``.gitignore``),
-under a file name that carries a hash of the source and the command, so an edited
-source is rebuilt and a stale build is never loaded. The two command lines are the JAX
-package's: with ``-march=native -fopenmp`` first, without them where that fails; the
-one that built is printed and kept in ``LIBRARY.build_command``.
+``palette_native.cpp`` is the port's counterpart of ``palettenerf_tpu/native/``; the JPEG
+decoder stands in for the ``cv2.imread`` the JAX package's loader calls. Each source is
+built with ``g++`` at first use into ``palettenerf_torch/build/`` (listed in
+``.gitignore``), under a file name that carries a hash of the source and the command, so an
+edited source is rebuilt and a stale build is never loaded. The two command lines are the
+JAX package's: with ``-march=native -fopenmp`` first, without them where that fails; the
+one that built is printed and kept in ``build_command``.
 
 Unlike the JAX package, nothing falls back quietly: a build that fails raises with the
-compiler's output. The plain versions of these kernels are NumPy functions,
+compiler's output. The plain versions of the extraction kernels are NumPy functions,
 ``extraction.histogram.rgb_histogram_reference`` and
 ``extraction.geometry.point_triangle_min_dist_reference``, which the extraction never
-calls: the tests and ``chip_smoke.py`` hold the kernels against them.
+calls: the tests and ``chip_smoke.py`` hold the kernels against them. The JPEG decoder has
+no plain version in the port; the tests hold it against ``cv2.imread``.
 """
 
 from __future__ import annotations
@@ -27,23 +30,32 @@ import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "native", "palette_native.cpp")
+IMAGE_SOURCE = os.path.join(_PKG, "native", "image_native.cpp")
 BUILD_DIR = os.path.join(_PKG, "build")
 COMMANDS = (["g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC"],
             ["g++", "-O3", "-shared", "-fPIC"])
 
 _F, _D = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_double)
+_U8, _I32 = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int32)
 _SIGNATURES = {
-    "rgb_histogram": [_F, _F, ctypes.c_int64, ctypes.c_int, _D],
-    "rgb_histogram_centers": [ctypes.c_int, _F],
-    "point_triangle_min_dist": [_D, ctypes.c_int64, _D, ctypes.c_int64, _D, _D],
+    "rgb_histogram": ([_F, _F, ctypes.c_int64, ctypes.c_int, _D], None),
+    "rgb_histogram_centers": ([ctypes.c_int, _F], None),
+    "point_triangle_min_dist": ([_D, ctypes.c_int64, _D, ctypes.c_int64, _D, _D], None),
+}
+_IMAGE_SIGNATURES = {
+    "jpeg_header": ([_U8, ctypes.c_int64, _I32, ctypes.c_char_p, ctypes.c_int64], ctypes.c_int),
+    "jpeg_decode": ([_U8, ctypes.c_int64, _U8, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64],
+                    ctypes.c_int),
 }
 
 
 class NativeLibrary:
-    """``palette_native.cpp`` built into a shared library and loaded on first ``get()``."""
+    """A C++ source built into a shared library and loaded on first ``get()``; ``signatures``
+    maps each exported function to its (argtypes, restype)."""
 
-    def __init__(self, source: str = SOURCE):
+    def __init__(self, source: str = SOURCE, signatures=None):
         self.source = source
+        self.signatures = _SIGNATURES if signatures is None else signatures
         self.build_command: Optional[List[str]] = None
         self.build_seconds: Optional[float] = None
         self._lib = None
@@ -51,7 +63,8 @@ class NativeLibrary:
     def _target(self, flags) -> str:
         with open(self.source, "rb") as f:
             digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()
-        return os.path.join(BUILD_DIR, f"libpalette_native.{digest[:12]}.so")
+        stem = os.path.splitext(os.path.basename(self.source))[0]
+        return os.path.join(BUILD_DIR, f"lib{stem}.{digest[:12]}.so")
 
     def build(self) -> str:
         """The path of a build of this source: an existing one, or a new one made with the
@@ -86,14 +99,15 @@ class NativeLibrary:
     def get(self) -> ctypes.CDLL:
         if self._lib is None:
             lib = ctypes.CDLL(self.build())
-            for name, argtypes in _SIGNATURES.items():
+            for name, (argtypes, restype) in self.signatures.items():
                 fn = getattr(lib, name)
-                fn.argtypes, fn.restype = argtypes, None
+                fn.argtypes, fn.restype = argtypes, restype
             self._lib = lib
         return self._lib
 
 
 LIBRARY = NativeLibrary()
+IMAGE_LIBRARY = NativeLibrary(IMAGE_SOURCE, _IMAGE_SIGNATURES)
 
 
 def _ptr(a: np.ndarray, ctype):
@@ -142,4 +156,23 @@ def point_triangle_min_dist_native(points: np.ndarray,
     return dist, closest
 
 
-__all__ = ["LIBRARY", "NativeLibrary", "rgb_histogram_native", "point_triangle_min_dist_native"]
+def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """A JPEG stream -> uint8 [H, W, 3] RGB or [H, W, 1] gray: the pixels
+    ``cv2.imread(..., IMREAD_UNCHANGED)`` returns (as BGR) under libjpeg-turbo's defaults.
+    Raises ``ValueError`` naming ``name`` and what is refused or corrupt."""
+    lib = IMAGE_LIBRARY.get()
+    src = np.frombuffer(data, np.uint8)
+    err = ctypes.create_string_buffer(512)
+    hwc = np.zeros(3, np.int32)
+    if lib.jpeg_header(_ptr(src, ctypes.c_uint8), src.size, _ptr(hwc, ctypes.c_int32), err,
+                       len(err)):
+        raise ValueError(f"{name}: {err.value.decode()}")
+    out = np.empty(tuple(int(v) for v in hwc), np.uint8)
+    if lib.jpeg_decode(_ptr(src, ctypes.c_uint8), src.size, _ptr(out, ctypes.c_uint8), out.size,
+                       err, len(err)):
+        raise ValueError(f"{name}: {err.value.decode()}")
+    return out
+
+
+__all__ = ["LIBRARY", "IMAGE_LIBRARY", "NativeLibrary", "rgb_histogram_native",
+           "point_triangle_min_dist_native", "decode_jpeg"]

@@ -15,7 +15,7 @@ from palettenerf_tpu.config import Config as JConfig
 from palettenerf_tpu.data.provider import NeRFDataset as JDataset
 from palettenerf_torch.config import Config as TConfig
 from palettenerf_torch.data import png
-from palettenerf_torch.data.provider import NeRFDataset as TDataset, area_downscale
+from palettenerf_torch.data.provider import NeRFDataset as TDataset, area_resize
 from palettenerf_torch.data.rays import gen_rays, gen_rays_torch
 from synthetic import make_sphere_dataset
 from torch_support import CPU_THREADS
@@ -91,20 +91,28 @@ def test_write_png_roundtrip(tmp_path):
     np.testing.assert_array_equal(_cv2_rgb(path), img)
 
 
-def test_png_rejects_16_bit(tmp_path):
-    path = str(tmp_path / "d16.png")
-    cv2.imwrite(path, np.zeros((4, 4, 3), np.uint16))
-    with pytest.raises(ValueError, match="bit depth 16"):
-        png.read_png(path)
+def test_png_16_bit_matches_cv2(tmp_path):
+    """16-bit PNGs read as cv2 reads them: uint16, channels in RGB(A) order."""
+    rng = np.random.default_rng(16)
+    for c in (1, 3, 4):
+        img = rng.integers(0, 65536, (5, 7, c)).astype(np.uint16)
+        path = str(tmp_path / f"d16_{c}.png")
+        cv2.imwrite(path, img if c == 1 else img[..., [2, 1, 0, 3][:c]])
+        got = png.read_png(path)
+        assert got.dtype == np.uint16
+        np.testing.assert_array_equal(got, img)
+        np.testing.assert_array_equal(got.reshape(_cv2_rgb(path).shape), _cv2_rgb(path))
 
 
 def test_area_downscale_matches_cv2():
+    """``area_resize`` against cv2's INTER_AREA: an integer factor (2) and a fractional
+    one (24 -> 10 rows), bit for bit."""
     img = np.random.default_rng(1).integers(0, 256, (24, 16, 4)).astype(np.uint8)
-    ref = cv2.resize(img, (8, 12), interpolation=cv2.INTER_AREA)
-    got = area_downscale(img, 12, 8)
-    assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
-    with pytest.raises(ValueError):
-        area_downscale(img, 10, 8)
+    for H, W in [(12, 8), (10, 8)]:
+        ref = cv2.resize(img, (W, H), interpolation=cv2.INTER_AREA)
+        got = area_resize(img, H, W)
+        assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+        np.testing.assert_array_equal(got, ref)
 
 
 @pytest.fixture(scope="module")
