@@ -128,7 +128,23 @@ the training views (``--extract_palette --extract_via_sweep``), then 300 palette
     and timed on the stream one step's real cotangents give it; the per-ray extraction
     (``--extract_palette`` without ``--extract_via_sweep``) with its time by phase; 308
     palette steps with ``--datatype mip360`` and the test tail (val PSNR, peak memory).
-    ``python3 chip_smoke.py --real-scene-only`` builds and runs this phase alone.
+    ``python3 chip_smoke.py --real-scene-only`` builds and runs this phase alone;
+    ``--real-scene-only --trace-memory`` also records the allocator's history around the
+    palette run and prints the peak of its second train epoch, its test tail and one eval
+    frame, each with the blocks live at it and the code that allocated them.
+
+Depth modes (``python3 chip_smoke.py --depth-only <mode>``, one at a time, none in the default
+run): the recipes at their own depth through the CLIs, with the shell recipe's flags (only
+``--iters``, ``EXTRA_FLAGS`` and the workspace set). Each prints every ``evaluate_one_epoch``
+with its step, holds and times B1 on the last step's update stream, prints a JSON summary and
+ends with the result line. ``chain``: ``scripts/run_blender.sh`` with
+``configs_proc/proc_toys.sh`` and ``EXTRA_FLAGS="--fast_grad"`` at 8000 steps, the
+extraction at ``--extract_downscale 2``, 8000 palette steps and
+``palettenerf_torch.serve_vs_gt``, every figure held to the README's JAX figure less 1.0 dB.
+``stage1``: its stage 1 at ``-O`` (held to the chain's stage-1 floor) and at ``-O2``.
+``bg``: the bg + patch stage 1 of phase 11d at 8000 steps. ``mip360``: the recipe of phase 13
+at 8400 + 8400 steps, with both cascades' cells and the march reach at every eval;
+``mip360-explore``: its stage 1 alone at 20,020 steps.
 
 Launch counts are zeroed just before each main path and read just after (the data-parallel
 ranks count in their own processes and report them); every kernel of the train, palette
@@ -141,6 +157,7 @@ Exits non-zero, printing no result, without a CUDA device or outside a checkout.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -290,17 +307,35 @@ DP_TIMEOUT_S = 300.0        # the two ranks' deadline
 # the Mip-NeRF 360 recipe (scripts/run_mip360.sh with configs_mip360/bonsai.sh) on the
 # LLFF-layout JPEG fixture, iters cut from 90,000 to 300
 LLFF_SCENE = os.path.join(ROOT, "data_proc", "proc_toys_llff")
-REAL_NERF_WS = os.path.join("results", "chip_smoke_real", "version_1")
-REAL_COMMON = ["--bound", "2", "--scale", "0.16", "--bg_radius", "0", "--density_thresh", "10",
-               "--min_near", "0.2"]
-REAL_NERF_ARGS = [LLFF_SCENE, "--workspace", "chip_smoke_real", "--iters", "300", "-O",
-                  "--offset", "0", "0", "0", "--lambda_sparse", "0", "--no_bg",
-                  "--filter_close_point"] + REAL_COMMON
-REAL_EXTRACT_ARGS = [LLFF_SCENE, REAL_NERF_WS, "-O", "--extract_palette",
-                     "--use_normalized_palette"] + REAL_COMMON
-REAL_PALETTE_ARGS = [LLFF_SCENE, REAL_NERF_WS, "-O", "--iters", "300", "--offset", "0", "0",
-                     "0", "--random_size", "0", "--use_initialization_from_rgbxy",
-                     "--use_normalized_palette", "--datatype", "mip360"] + REAL_COMMON
+
+
+def mip360_nerf_args(data_dir, name, iters, extra=()):
+    """``scripts/run_mip360.sh -m nerf`` with ``configs_mip360/bonsai.sh`` on ``data_dir``."""
+    return [data_dir, "--workspace", name, "--iters", str(iters), "--bound", "2", "--offset",
+            "0", "0", "0", "--scale", "0.16", "--bg_radius", "0", "--density_thresh", "10",
+            "--lambda_sparse", "0.00", "--min_near", "0.2", "-O", "--no_bg",
+            "--filter_close_point", *extra]
+
+
+def mip360_extract_args(data_dir, nerf_model):
+    """``scripts/run_mip360.sh -m extract`` with ``configs_mip360/bonsai.sh``."""
+    return [data_dir, nerf_model, "-O", "--bound", "2", "--scale", "0.16", "--bg_radius", "0",
+            "--density_thresh", "10", "--min_near", "0.2", "--extract_palette",
+            "--use_normalized_palette"]
+
+
+def mip360_palette_args(data_dir, nerf_model, iters, extra=()):
+    """``scripts/run_mip360.sh -m palette`` with ``configs_mip360/bonsai.sh``."""
+    return [data_dir, nerf_model, "-O", "--iters", str(iters), "--bound", "2", "--scale",
+            "0.16", "--offset", "0", "0", "0", "--bg_radius", "0", "--density_thresh", "10",
+            "--min_near", "0.2", "--random_size", "0", "--use_initialization_from_rgbxy",
+            "--use_normalized_palette", "--datatype", "mip360", *extra]
+
+
+REAL_NERF_ARGS = mip360_nerf_args(LLFF_SCENE, "chip_smoke_real", 300)
+REAL_EXTRACT_ARGS = mip360_extract_args(LLFF_SCENE, os.path.join("results", "chip_smoke_real"))
+REAL_PALETTE_ARGS = mip360_palette_args(LLFF_SCENE, os.path.join("results", "chip_smoke_real"),
+                                        300)
 REAL_MESH_RESOLUTION = 128  # the CLI's mesh tail at 128^3 (host time)
 # validation view 0 (333x250) after 308 steps, stage 1 and then the palette: set from the
 # first card run (8.535 and 7.390 dB) with ~1 dB margin. At this depth the field is poor
@@ -362,9 +397,12 @@ def scatter_kernels(scatter, period):
     """The kernels of ``scatter_add`` by name: the path's call (a period: the column
     walk), the call without a period (one vector atomic per row in the stream's order),
     and the yardstick both are timed against (scalar atomics, the first design)."""
-    return {"columns": lambda *a: scatter.scatter_add(*a, period),
-            "rows": lambda *a: scatter.scatter_add(*a),
-            "scalar": lambda *a: scatter._scatter_add(*a, period, scalar=True)}
+    kernels = {"columns": lambda *a: scatter.scatter_add(*a, period),
+               "rows": lambda *a: scatter.scatter_add(*a),
+               "scalar": lambda *a: scatter._scatter_add(*a, period, scalar=True)}
+    if period is None:  # a stream the path hands over without its layout: no column walk
+        del kernels["columns"]
+    return kernels
 
 
 def check_scatter(torch, scatter, idx, vals, total, what, period):
@@ -390,37 +428,86 @@ def check_scatter(torch, scatter, idx, vals, total, what, period):
     return max_err, first
 
 
-def time_scatter(torch, scatter, idx, vals, total, what):
-    """Times of one stream: the path's call (column walk), the other kernels, the plain
-    version and ``index_add_``. ms per call, wrapper included (zero-fill of the output)."""
+def time_scatter(torch, scatter, idx, vals, total, what, period=SCATTER_PERIOD):
+    """Times of one stream: the path's call (the column walk with a period, else stream
+    order), the other kernels, the plain version and ``index_add_``. ms per call, wrapper
+    included (zero-fill of the output)."""
     vals_f32 = vals.float()
     out_f32 = torch.zeros((total, vals.shape[1]), device=idx.device)
     t = {}
-    for name, call in scatter_kernels(scatter, SCATTER_PERIOD).items():
-        t["ms" if name == "columns" else f"{name}_ms"] = time_ms(
-            torch, lambda: call(idx, vals, total))
+    for i, (name, call) in enumerate(scatter_kernels(scatter, period).items()):
+        t["ms" if i == 0 else f"{name}_ms"] = time_ms(torch, lambda: call(idx, vals, total))
     t["plain_ms"] = time_ms(torch, lambda: scatter.scatter_add_reference(idx, vals, total))
     t["library_ms"] = time_ms(torch, lambda: out_f32.index_add_(0, idx, vals_f32))
-    log(f"scatter_add timing, {what} stream, U={idx.numel()}: column walk {t['ms']:.3f} ms, "
-        f"vector atomic per row in stream order {t['rows_ms']:.3f} ms, scalar atomics "
+    walk = (f"column walk {t['ms']:.3f} ms, vector atomic per row in stream order "
+            f"{t['rows_ms']:.3f} ms" if period else
+            f"vector atomic per row in stream order {t['ms']:.3f} ms")
+    log(f"scatter_add timing, {what} stream, U={idx.numel()}: {walk}, scalar atomics "
         f"{t['scalar_ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, index_add_ "
         f"{t['library_ms']:.3f} ms")
     return t
 
 
-def stream_stats(torch, spec, idx, vals, what):
+def stream_stats(torch, spec, idx, vals, what, period=SCATTER_PERIOD):
     """What the stream asks of the atomic units: how many updates land on the dense
-    coarse levels, the longest same-row chain, how many updates are zero, and how many
-    repeat the row of the point before them in their column."""
+    coarse levels, the longest same-row chain, how many updates are zero, and (with the
+    stream's ``period``) how many repeat the row of the point before them in their column."""
     coarse = float((idx < spec.offsets[5]).float().mean())
     per_row = torch.bincount(idx.long(), minlength=spec.total_params)
     zero = float((vals == 0).all(-1).float().mean())
-    cols = idx.view(-1, SCATTER_PERIOD)
-    repeat = float((cols[1:] == cols[:-1]).float().mean())
+    repeat = ""
+    if period:
+        cols = idx.view(-1, period)
+        repeat = (f", {100 * float((cols[1:] == cols[:-1]).float().mean()):.2f}% repeat the "
+                  f"row of the point before")
     log(f"{what} stream: {100 * coarse:.2f}% of updates on levels 0-4 "
         f"({spec.offsets[5]} rows), largest per-row update count {int(per_row.max())}, "
-        f"{int((per_row > 0).sum())} rows touched, {100 * zero:.2f}% of updates all-zero, "
-        f"{100 * repeat:.2f}% repeat the row of the point before")
+        f"{int((per_row > 0).sum())} rows touched, {100 * zero:.2f}% of updates all-zero"
+        + repeat)
+
+
+@contextlib.contextmanager
+def last_scatter():
+    """The arguments of the last ``scatter_add`` call of the hash-grid backward while open
+    (the launch is still counted by the kernel's own wrapper), and the number of calls."""
+    from palettenerf_torch.ops import hashgrid_fast
+
+    kernel, stream = hashgrid_fast.scatter_add, {"calls": 0}
+
+    def keep(idx, vals, total_rows, period=None):
+        stream.update(idx=idx, vals=vals, total=total_rows, period=period,
+                      calls=stream["calls"] + 1)
+        return kernel(idx, vals, total_rows, period)
+
+    hashgrid_fast.scatter_add = keep
+    try:
+        yield stream
+    finally:
+        hashgrid_fast.scatter_add = kernel
+
+
+def stream_numbers(torch, spec, stream, what):
+    """B1 on a kept update stream: every kernel against the plain version, the stream's
+    statistics, the times (the path's kernel, the others, plain, ``index_add_``) and the
+    byte bound."""
+    from palettenerf_torch.ops import scatter
+
+    idx, vals, total, period = (stream[k] for k in ("idx", "vals", "total", "period"))
+    if total != spec.total_params:
+        raise AssertionError(f"{what} stream: {total} rows, the table has {spec.total_params}")
+    max_err, _ = check_scatter(torch, scatter, idx, vals, total, f"{what} stream", period)
+    stream_stats(torch, spec, idx, vals, what, period)
+    t = time_scatter(torch, scatter, idx, vals, total, what, period)
+    U, C = idx.numel(), vals.shape[1]
+    n_bytes = U * (4 + 2 * C) + total * C * 4
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, U * C / FP32_FLOPS * 1e3
+    t.update(U=U, period=period, max_abs_err=max_err,
+             nonzero_share=float((vals != 0).any(-1).float().mean()),
+             bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+    log(f"scatter_add on the {what} stream: U={U}, period {period}, "
+        f"{100 * t['nonzero_share']:.2f}% of the updates non-zero, bound "
+        f"{t['bound_ms']:.4f} ms ({n_bytes / 1e6:.1f} MB)")
+    return t
 
 
 def phase_kernels(torch, dev):
@@ -835,25 +922,10 @@ def dp_run(out_dir: str, n_devices: int, device: str = "cuda") -> None:
 
 def dp_stream(torch, spec, stream: dict) -> dict:
     """B1 on the update stream a rank's backward gave it (one rank's share of a ``-O``
-    batch, its real cotangents): every kernel against the plain version, the stream's
-    statistics, the times and the bound."""
-    from palettenerf_torch.ops import scatter
-
-    idx, vals, total, period = (stream[k] for k in ("idx", "vals", "total", "period"))
-    if period != SCATTER_PERIOD or total != spec.total_params:
-        raise AssertionError(f"rank stream: period {period}, {total} rows")
-    max_err, _ = check_scatter(torch, scatter, idx, vals, total, "data-parallel rank 0 stream",
-                               period)
-    stream_stats(torch, spec, idx, vals, "data-parallel rank 0")
-    t = time_scatter(torch, scatter, idx, vals, total, "data-parallel rank 0")
-    U, C = idx.numel(), vals.shape[1]
-    n_bytes = U * (4 + 2 * C) + total * C * 4
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, U * C / FP32_FLOPS * 1e3
-    t.update(U=U, max_abs_err=max_err, bound_ms=max(t_bytes, t_ops),
-             bound_by="bytes" if t_bytes >= t_ops else "operations")
-    log(f"scatter_add bound on the data-parallel rank 0 stream {t['bound_ms']:.4f} ms "
-        f"({n_bytes / 1e6:.1f} MB)")
-    return t
+    batch, its real cotangents): ``stream_numbers``."""
+    if stream["period"] != SCATTER_PERIOD:
+        raise AssertionError(f"rank stream: period {stream['period']}")
+    return stream_numbers(torch, spec, stream, "data-parallel rank 0")
 
 
 def _dp_ranks(torch, out_dir, world, backend, one):
@@ -2660,7 +2732,135 @@ def phase_bg_linear_palette(torch, dev):
     return launches, info
 
 
-def phase_real_scene(torch, dev, o_steps_per_s=None):
+MEMORY_MARKER_BYTES = 6136 * 512  # a block no other call asks for: where a part's trace starts
+MEMORY_TRACE_ENTRIES = 400_000      # allocator events kept per traced part
+
+
+def _repo_frames(frames, depth: int = 4) -> str:
+    """The innermost ``depth`` frames of an allocation that lie in this repository."""
+    own = [f for f in frames if "palettenerf_torch" in f["filename"]
+           or f["filename"].endswith("chip_smoke.py")]
+    return " < ".join(f"{os.path.relpath(f['filename'], ROOT)}:{f['line']} {f['name']}"
+                      for f in own[:depth])
+
+
+def peak_allocations(trace, top: int = 6):
+    """Replay the allocator's events of one traced part (``trace``: its device trace, from
+    the marker block on): the largest sum of live blocks the part allocated, and those
+    blocks at that moment, largest first, with the repository frames that asked for them."""
+    marks = [i for i, e in enumerate(trace)
+             if e["action"] == "alloc" and e["size"] == MEMORY_MARKER_BYTES]
+    # without the marker the ring buffer has wrapped: its events are the part's last ones,
+    # and blocks they free but did not allocate are left out
+    start = 1 + marks[-1] if marks else 0
+
+    def replay(stop):
+        live, cur, best, at = {}, 0, 0, start
+        for i in range(start, stop):
+            e = trace[i]
+            if e["action"] == "alloc":
+                live[e["addr"]] = e
+                cur += e["size"]
+            elif e["action"] == "free_requested" and e["addr"] in live:
+                cur -= live.pop(e["addr"])["size"]
+            if cur > best:
+                best, at = cur, i + 1
+        return live, best, at
+
+    _, best, at = replay(len(trace))
+    live, _, _ = replay(at)
+    blocks = sorted(live.values(), key=lambda e: -e["size"])[:top]
+    return best, [{"MiB": e["size"] / 2 ** 20, "where": _repo_frames(e["frames"])}
+                  for e in blocks]
+
+
+class MemoryParts:
+    """Peak device memory of the parts of a run, each above what was allocated when it
+    began; for every part, the allocator's history (Python stacks) names the blocks live at
+    its peak. ``wrap(cls, method, name, when)`` makes ``method`` one part while the context
+    is open (``when(self)`` picks the calls that are traced); ``part(name)`` is one too."""
+
+    def __init__(self, torch):
+        self.torch, self.parts, self._patched, self._active = torch, [], [], False
+
+    def part(self, name):
+        torch = self.torch
+
+        @contextlib.contextmanager
+        def traced():
+            if self._active:  # a part inside a part belongs to the outer one
+                yield
+                return
+            self._active = True
+            self.rows = 0
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.memory._record_memory_history(max_entries=MEMORY_TRACE_ENTRIES)
+            marker = torch.empty(MEMORY_MARKER_BYTES, dtype=torch.uint8, device="cuda")
+            del marker
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+                trace = torch.cuda.memory._snapshot()["device_traces"][0]
+                torch.cuda.memory._record_memory_history(enabled=None)
+                self._active = False
+            rise, blocks = peak_allocations(trace)
+            entry = {"part": name, "base_gib": base / 2 ** 30, "peak_gib": peak / 2 ** 30,
+                     "traced_rise_gib": rise / 2 ** 30, "seconds": time.perf_counter() - t0,
+                     "events": len(trace), "largest_batch_rows": self.rows,
+                     "blocks_at_peak": blocks}
+            self.parts.append(entry)
+            log(f"memory, {name}: {base / 2 ** 30:.2f} GiB allocated before, peak "
+                f"{peak / 2 ** 30:.2f} GiB (traced rise {rise / 2 ** 30:.2f} GiB over "
+                f"{len(trace)} events; largest batch of {self.rows} points); blocks live at "
+                f"the peak:\n" + "\n".join(
+                    f"  {b['MiB']:10.1f} MiB  {b['where']}" for b in blocks))
+
+        return traced()
+
+    def count_rows(self, module, name, arg: int):
+        """Keep the largest ``shape[0]`` of argument ``arg`` of ``module.name`` per part."""
+        fn = getattr(module, name)
+        parts = self
+
+        def counted(*a, **kw):
+            parts.rows = max(parts.rows, int(a[arg].shape[0]))
+            return fn(*a, **kw)
+
+        setattr(module, name, counted)
+        self._patched.append((module, name, fn, True))
+
+    def wrap(self, cls, method, name, when=lambda self: True):
+        fn, own = getattr(cls, method), method in cls.__dict__
+        parts = self
+
+        def traced(obj, *a, **kw):
+            if not when(obj):
+                return fn(obj, *a, **kw)
+            with parts.part(name):
+                return fn(obj, *a, **kw)
+
+        setattr(cls, method, traced)
+        self._patched.append((cls, method, fn, own))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn, own in reversed(self._patched):
+            if own:
+                setattr(owner, name, fn)
+            else:  # inherited: drop the wrapper, the base class's method shows again
+                delattr(owner, name)
+        self._patched = []
+        return False
+
+
+def phase_real_scene(torch, dev, o_steps_per_s=None, trace_memory=False):
     """The Mip-NeRF 360 recipe on the LLFF-layout JPEG fixture ``data_proc/proc_toys_llff``
     at full width, through the CLIs: every image through the native JPEG decoder against
     ``decoded.json`` (ms per megapixel; the provider's load in seconds); stage 1 with
@@ -2681,7 +2881,7 @@ def phase_real_scene(torch, dev, o_steps_per_s=None):
     from palettenerf_torch.data.provider import NeRFDataset
     from palettenerf_torch.data.rays import gen_rays_torch
     from palettenerf_torch.models.nerf import param_list
-    from palettenerf_torch.ops import hashgrid_fast, scatter
+    from palettenerf_torch.ops import scatter
     from palettenerf_torch.ops.occupancy import init_grid_state, mark_untrained_grid, packbits
     from palettenerf_torch.train.metrics import psnr
 
@@ -2789,40 +2989,20 @@ def phase_real_scene(torch, dev, o_steps_per_s=None):
     # -------------------------------------------------------------- B1 on this stream
     # one more train step on 4096 pixels of training view 0, its scatter call kept: the
     # rows and bf16 cotangents of a two-cascade backward
-    kernel, stream = hashgrid_fast.scatter_add, {}
-
-    def keep(idx, vals, total_rows, period=None):
-        stream.update(idx=idx, vals=vals, total=total_rows, period=period)
-        return kernel(idx, vals, total_rows, period)
-
     gen = torch.Generator(device=dev).manual_seed(9)
     inds = torch.randint(0, train_ds.H * train_ds.W, (cfg.num_rays,), generator=gen, device=dev)
     rays_o, rays_d = gen_rays_torch(torch.as_tensor(train_ds.poses[0]).to(dev),
                                     [float(v) for v in train_ds.intrinsics], train_ds.H,
                                     train_ds.W, inds)
     pixels = torch.as_tensor(train_ds.images[0]).to(dev).reshape(-1, 3)[inds]
-    hashgrid_fast.scatter_add = keep
-    try:
+    with last_scatter() as stream:
         trainer.train_step(rays_o, rays_d, pixels)
-    finally:
-        hashgrid_fast.scatter_add = kernel
     torch.cuda.synchronize()
-    idx, vals, total, period = (stream[k] for k in ("idx", "vals", "total", "period"))
-    spec = trainer.spec.grid  # 16 levels x 2^19 rows at most: 6,328,848 rows at bound 2
-    if period != SCATTER_PERIOD or total != spec.total_params:
-        raise AssertionError(f"real-scene stream: period {period}, {total} rows")
-    max_err, _ = check_scatter(torch, scatter, idx, vals, total, "real-scene stream", period)
-    stream_stats(torch, spec, idx, vals, "real-scene")
-    t = time_scatter(torch, scatter, idx, vals, total, "real-scene")
-    U, C = idx.numel(), vals.shape[1]
-    n_bytes = U * (4 + 2 * C) + total * C * 4
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, U * C / FP32_FLOPS * 1e3
-    nonzero = float((vals != 0).any(-1).float().mean())
-    t.update(U=U, max_abs_err=max_err, nonzero_share=nonzero, bound_ms=max(t_bytes, t_ops),
-             bound_by="bytes" if t_bytes >= t_ops else "operations")
-    log(f"scatter_add on the real-scene stream: U={U}, {100 * nonzero:.2f}% of the updates "
-        f"non-zero, bound {t['bound_ms']:.4f} ms ({n_bytes / 1e6:.1f} MB)")
-    del trainer, train_ds, stream, idx, vals
+    # 16 levels x 2^19 rows at most: 6,328,848 rows at bound 2
+    if stream["period"] != SCATTER_PERIOD:
+        raise AssertionError(f"real-scene stream: period {stream['period']}")
+    t = stream_numbers(torch, trainer.spec.grid, stream, "real-scene")
+    del trainer, train_ds, stream
 
     # -------------------------------------------------------------- per-ray extraction
     torch.cuda.empty_cache()
@@ -2853,16 +3033,31 @@ def phase_real_scene(torch, dev, o_steps_per_s=None):
     # -------------------------------------------------------------- palette main path
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    zero_counts()
-    t0 = time.perf_counter()
-    trainer = main_palette.main(REAL_PALETTE_ARGS, device=dev)
-    torch.cuda.synchronize()
-    total_s = time.perf_counter() - t0
-    palette_launches = read_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    scatter.check_refused()
-    losses, secs = trainer.stats["loss"], trainer.stats["epoch_seconds"]
-    out = trainer.eval_step_full(data)
+    with MemoryParts(torch) as memory:
+        if trace_memory:  # the palette run's peak, split: train, the CLI's test tail, eval
+            from palettenerf_torch.render import palette_renderer
+            from palettenerf_torch.train.palette_trainer import PaletteTrainer
+
+            memory.count_rows(palette_renderer, "palette_forward", 2)
+            memory.wrap(PaletteTrainer, "train_one_epoch", "palette train, epoch 2",
+                        when=lambda tr: tr.epoch == 2)
+            memory.wrap(PaletteTrainer, "evaluate_one_epoch",
+                        "test tail: evaluate_one_epoch (test split)")
+            memory.wrap(PaletteTrainer, "test", "test tail: test renders")
+        zero_counts()
+        t0 = time.perf_counter()
+        trainer = main_palette.main(REAL_PALETTE_ARGS, device=dev)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        palette_launches = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        scatter.check_refused()
+        losses, secs = trainer.stats["loss"], trainer.stats["epoch_seconds"]
+        with memory.part("val view 0") if trace_memory else contextlib.nullcontext():
+            out = trainer.eval_step_full(data)
+    if trace_memory:
+        res["palette_memory_parts"] = memory.parts
+        peak_gb = max(p["peak_gib"] for p in memory.parts)  # each part resets the peak
     pal_psnr = psnr(out["image"], data["images"][..., :3])
     res.update(palette_steps_per_s=[n_views / s for s in secs], palette_val_psnr=pal_psnr,
                palette_peak_gib=peak_gb, palette_total_s=total_s)
@@ -2884,12 +3079,427 @@ def phase_real_scene(torch, dev, o_steps_per_s=None):
     return launches, palette_launches, t, res
 
 
+# ---------------------------------------------------------------------- depth modes
+# The recipes at their own depth (``--depth-only <mode>``), each run through the port's CLIs
+# with the flags of its shell recipe taken verbatim: only --iters, EXTRA_FLAGS and the
+# workspace are set (tests/test_torch_depth_flags.py parses the scripts and holds these
+# lists to them).
+PROC_TOYS = "./data_proc/proc_toys"  # configs_proc/proc_toys.sh: data_dir
+LLFF_DATA = "./data_proc/proc_toys_llff"
+DEPTH_ITERS = 8000                   # configs_proc/proc_toys.sh: iters
+
+
+def blender_nerf_args(name, iters, extra=()):
+    """``scripts/run_blender.sh -m nerf`` with ``configs_proc/proc_toys.sh``."""
+    return [PROC_TOYS, "--workspace", name, "--iters", str(iters), "--bound", "1", "--offset",
+            "0", "0", "0", "--scale", "0.8", "--bg_radius", "0", "--density_thresh", "10", "-O",
+            "--dt_gamma", "0", *extra]
+
+
+def blender_extract_args(nerf_model):
+    """``scripts/run_blender.sh -m extract`` with ``configs_proc/proc_toys.sh``."""
+    return [PROC_TOYS, nerf_model, "-O", "--bound", "1", "--scale", "0.8", "--bg_radius", "0",
+            "--density_thresh", "10", "--extract_palette", "--use_normalized_palette"]
+
+
+def blender_palette_args(nerf_model, iters, extra=()):
+    """``scripts/run_blender.sh -m palette`` with ``configs_proc/proc_toys.sh``."""
+    return [PROC_TOYS, nerf_model, "-O", "--iters", str(iters), "--bound", "1", "--scale",
+            "0.8", "--offset", "0", "0", "0", "--bg_radius", "0", "--density_thresh", "10",
+            "--random_size", "0", "--use_initialization_from_rgbxy", "--use_normalized_palette",
+            "--dt_gamma", "0", "--datatype", "blender", *extra]
+
+
+# chain: the README's profile (EXTRA_FLAGS="--fast_grad", README.md:442-445), and the
+# extraction at --extract_downscale 2 as the README ran it (README.md:443; per-ray)
+CHAIN_WS = "depth_chain"
+CHAIN_NERF_ARGS = blender_nerf_args(CHAIN_WS, DEPTH_ITERS, ["--fast_grad"])
+CHAIN_EXTRACT_ARGS = blender_extract_args(f"./results/{CHAIN_WS}") + ["--extract_downscale", "2"]
+CHAIN_PALETTE_ARGS = blender_palette_args(f"./results/{CHAIN_WS}", DEPTH_ITERS, ["--fast_grad"])
+# floors: the README's figures of the JAX package on the same scene (README.md:442-445, a
+# TPU run of an earlier round) less 1.0 dB
+CHAIN_FLOORS = {
+    "stage1_val": 27.25 - 1.0,       # stage 1, 8k -O --fast_grad: val PSNR 27.25
+    "palette_val": 27.66 - 1.0,      # palette, 8k: eval PSNR 27.66 on the EMA weights
+    "sweep_vs_gt": 25.26 - 1.0,      # scripts/serve_vs_gt.py: sweep vs GT, mean of 8 views
+    "exact_vs_gt": 28.06 - 1.0,      # exact vs GT (first two views)
+    "sweep_vs_exact": 29.39 - 1.0,   # sweep vs exact (first two views)
+}
+README_PALETTE = (5, 6.6e6)          # README.md:443: 5 colours from 6.6M foreground samples
+# stage1: the chain's stage 1 at plain -O (exact trilinear gradients: held to the chain's
+# stage-1 floor) and at -O2 (no JAX figure: scripts/run_ab30k.sh never finished)
+STAGE1_RUNS = {"O": blender_nerf_args("depth_stage1_O", DEPTH_ITERS),
+               "O2": blender_nerf_args("depth_stage1_O2", DEPTH_ITERS, ["-O2"])}
+# bg: the default run's bg + patch flags at 8000 steps (its mesh at 128^3, as there)
+BG_DEPTH_ARGS = [("depth_bg" if a == "chip_smoke_bg" else str(DEPTH_ITERS) if a == "300" else a)
+                 for a in BG_PATCH_ARGS]
+# mip360: run_mip360.sh with configs_mip360/bonsai.sh on the LLFF-layout fixture; the
+# exploratory run is stage 1 alone at the most steps the choice of N may take
+MIP360_WS = "depth_mip360"
+MIP360_EXPLORE_ITERS = 20_000
+# the exploratory run (NVIDIA H100 80GB HBM3, 700 W) never cleared the all-white frame: val 7.33-7.68
+# dB from step 1400 to 20,020, flat from step 7000 on (7.63-7.68), the cells of both
+# cascades near their 20k count by 8400. So N = 8400 (300 epochs), and no PSNR floor: a floor
+# may not sit below the all-white frame's 7.59 + 5 dB (ROADMAP C16)
+MIP360_ITERS = 8400
+MIP360_MESH_RESOLUTION = REAL_MESH_RESOLUTION
+WHITE_FRAME_PSNR = 7.59              # an all-white frame on the fixture's val view 0
+
+
+def _clean(name):
+    import shutil
+
+    for top in ("results", "results_palette"):
+        shutil.rmtree(os.path.join(ROOT, top, name), ignore_errors=True)
+
+
+@contextlib.contextmanager
+def eval_curve(extra=None):
+    """Every ``evaluate_one_epoch`` of either trainer while open: model, split, epoch, step,
+    PSNR (the CLI's meter), and ``extra(trainer)`` beside them; logged as it comes."""
+    from palettenerf_torch.train.palette_trainer import PaletteTrainer
+    from palettenerf_torch.train.trainer import Trainer
+
+    curve, saved = [], [(cls, cls.__dict__["evaluate_one_epoch"])
+                        for cls in (Trainer, PaletteTrainer)]
+
+    def recorded(fn):
+        def evaluate(self, ds, *a, **kw):
+            t0 = time.perf_counter()
+            result = fn(self, ds, *a, **kw)
+            point = {"model": self.name, "split": ds.type, "views": len(ds),
+                     "epoch": self.epoch, "step": self.global_step, "psnr": result,
+                     "seconds": time.perf_counter() - t0}
+            if extra is not None and self.name == "ngp":
+                point.update(extra(self))
+            curve.append(point)
+            log(f"curve: {json.dumps(point, default=float)}")
+            return result
+        return evaluate
+
+    for cls, fn in saved:
+        setattr(cls, "evaluate_one_epoch", recorded(fn))
+    try:
+        yield curve
+    finally:
+        for cls, fn in saved:
+            setattr(cls, "evaluate_one_epoch", fn)
+
+
+def depth_stage1(torch, dev, argv, what, mesh_resolution=256, extra=None):
+    """Stage 1 through ``main_nerf.main`` (training with the CLI's evals, its test tail and
+    mesh), then the mean val PSNR of the last step's EMA field (the CLI's meter), B1 on the
+    last step's update stream. Checks: every step launched B1 once, the loss fell, the
+    parameters are finite. Returns (trainer, what was measured)."""
+    import numpy as np
+
+    from palettenerf_torch import main_nerf
+    from palettenerf_torch.data.provider import NeRFDataset
+    from palettenerf_torch.models.nerf import param_list
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with eval_curve(extra) as curve, last_scatter() as stream:
+        zero_counts()
+        t0 = time.perf_counter()
+        trainer = main_nerf.main(argv, device=dev, mesh_resolution=mesh_resolution)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = read_counts()
+        val = trainer.evaluate_one_epoch(NeRFDataset(trainer.opt, type="val"),
+                                         save_images=False)
+    secs, losses = trainer.stats["epoch_seconds"], trainer.stats["loss"]
+    steps = trainer.global_step
+    n_views = steps // len(secs)
+    res = {"steps": steps, "total_s": total_s, "val_psnr": val, "curve": curve,
+           "steps_per_s": n_views * (len(secs) - 1) / sum(secs[1:]),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "losses_every_10_epochs": losses[::10] + losses[-1:], "launches": launches}
+    log(f"{what}: {steps} steps in {total_s:.1f} s with the CLI's evals, test tail and "
+        f"{mesh_resolution}^3 mesh; {res['steps_per_s']:.2f} steps/s (epochs 2-{len(secs)}); "
+        f"val PSNR at step {steps} {val:.3f} dB (mean of the val views); peak "
+        f"{res['peak_gib']:.2f} GiB; launches {launches}")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{what}: the loss did not fall: {losses[0]} -> {losses[-1]}")
+    if launches["scatter_add"] != steps or stream["calls"] != steps:
+        raise AssertionError(f"{what}: scatter_add launched {launches['scatter_add']} times "
+                             f"({stream['calls']} calls) in {steps} steps")
+    if not all(bool(torch.isfinite(p).all()) for p in param_list(trainer.params)) \
+            or not np.isfinite(val):
+        raise AssertionError(f"{what}: non-finite parameters or val PSNR")
+    res["stream"] = stream_numbers(torch, trainer.spec.grid, stream, f"{what} step {steps}")
+    stream.clear()
+    return trainer, res
+
+
+def depth_extract(torch, dev, argv, what):
+    """The extraction through ``main_palette.main`` (``--extract_palette``, the per-ray
+    route): P within 4-8, the weights a partition of one. Returns what was measured."""
+    import numpy as np
+
+    from palettenerf_torch import main_palette
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    extractor = main_palette.main(argv, device=dev)
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    stats, timer, ws = extractor.extract_stats, extractor.extract_timer, extractor.workspace
+    del extractor
+    palette = np.load(os.path.join(ws, "palette.npz"))["palette"]
+    hist = np.load(os.path.join(ws, "hist_weights.npz"))["hist_weights"]
+    P = palette.shape[0]
+    log(f"{what} extraction: {extract_s:.1f} s, P = {P}, {stats['foreground_samples']} "
+        f"foreground samples; by phase:\n" + timer.report())
+    if "per-ray render" not in timer.totals:
+        raise AssertionError(f"extraction phases {list(timer.totals)}: not the per-ray route")
+    if not 4 <= P <= 8 or palette.min() < 0.0 or palette.max() > 1.0:
+        raise AssertionError(f"extracted palette: {P} colors in [{palette.min()}, "
+                             f"{palette.max()}]")
+    # barycentric weights: a lattice point on a tetrahedron's face within find_simplex's
+    # tolerance (1e-8) may take a weight just below 0
+    low, off = float(hist.min()), float(np.abs(hist.sum(-1) - 1.0).max())
+    if low < -1e-6 or off > 1e-6:
+        raise AssertionError(f"hist_weights: min {low}, sums within {off} of 1")
+    return {"extract_s": extract_s, "palette_size": P, "palette": palette.tolist(),
+            "foreground_samples": stats["foreground_samples"], "split": dict(timer.totals)}
+
+
+def depth_palette(torch, dev, argv, what):
+    """The palette stage through ``main_palette.main`` (training with the CLI's evals and
+    its test tail), then the mean val PSNR of the EMA weights (the CLI's meter). Checks:
+    B1 launched on every step, the loss fell. Returns (trainer, what was measured)."""
+    import numpy as np
+
+    from palettenerf_torch import main_palette
+    from palettenerf_torch.data.palette_provider import PaletteDataset
+    from palettenerf_torch.ops import scatter
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with eval_curve() as curve:
+        zero_counts()
+        t0 = time.perf_counter()
+        trainer = main_palette.main(argv, device=dev)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = read_counts()
+        scatter.check_refused()
+        val = trainer.evaluate_one_epoch(PaletteDataset(trainer.opt, type="val"),
+                                         save_images=False)
+    secs, losses = trainer.stats["epoch_seconds"], trainer.stats["loss"]
+    steps = trainer.global_step
+    n_views = steps // len(secs)
+    res = {"steps": steps, "total_s": total_s, "val_psnr": val, "curve": curve,
+           "steps_per_s_every_10_epochs": [n_views / s for s in secs[::10]],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "losses_every_10_epochs": losses[::10] + losses[-1:], "launches": launches}
+    log(f"{what} palette: {steps} steps in {total_s:.1f} s with the CLI's evals and test "
+        f"tail; steps/s every 10th epoch {['%.2f' % v for v in res['steps_per_s_every_10_epochs']]}; "
+        f"val PSNR at step {steps} {val:.3f} dB (EMA weights, mean of the val views); peak "
+        f"{res['peak_gib']:.2f} GiB; launches {launches}")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{what} palette: the loss did not fall: {losses[0]} -> "
+                             f"{losses[-1]}")
+    if launches["scatter_add"] < steps or not np.isfinite(val):
+        raise AssertionError(f"{what} palette: scatter_add launched {launches['scatter_add']} "
+                             f"times in {steps} steps; val {val}")
+    return trainer, res
+
+
+def _floor(value, floor, what):
+    if not value > floor:
+        raise AssertionError(f"{what}: {value:.3f} dB <= floor {floor}")
+
+
+def chain_serve_trace(torch, dev, trainer, ws, served):
+    """Where the serve figures' distance to the README's comes from: on test views 0-1 the
+    CLI's own exact render (the EMA weights, the eval settings: 1024 candidates, 256 slots,
+    no budget) against the image and against ``serve_vs_gt``'s exact frame (the raw
+    weights, 512 candidates, 192 slots, a budget of 3/8, 48 group slots) and its dropped
+    samples; the sweep at ``main_serve``'s settings (vd_bands 2, u_res 400); the occupied
+    cells of the bitfield the bake is masked with."""
+    import numpy as np
+
+    from palettenerf_torch.data.palette_provider import PaletteDataset
+    from palettenerf_torch.serve_vs_gt import psnr, serve_vs_gt
+    from palettenerf_torch.train.trainer import eval_gt
+
+    test_ds = PaletteDataset(trainer.opt, type="test")
+    views = []
+    for i, ex in enumerate(served.exact_frames):
+        data = test_ds.collate(i)
+        cli = trainer.eval_step_full(data)["image"]
+        views.append({"cli_vs_gt": psnr(cli, eval_gt(trainer.opt, data["images"])),
+                      "cli_vs_exact": psnr(cli, ex), "exact_vs_gt": served.exact_vs_gt[i],
+                      "exact_dropped": served.exact_dropped[i]})
+    sweep2 = serve_vs_gt(ws, PROC_TOYS, device=dev, vd_bands=2, u_res=400, n_exact=0,
+                         verbose=False)
+    bits = np.unpackbits(trainer.grid_state.bitfield.cpu().numpy(), bitorder="little")
+    out = {"views": views, "sweep_vd2_u400_vs_gt": sweep2.means()["sweep_vs_gt"],
+           "occupied_cells": int(bits.sum())}
+    log("chain serve trace: " + json.dumps(out, default=float))
+    return out
+
+
+def depth_chain(torch, dev):
+    """``scripts/run_blender.sh`` with ``configs_proc/proc_toys.sh`` at 8000 + 8000 steps in
+    the README's profile: stage 1, the extraction at ``--extract_downscale 2``, the palette
+    stage, then ``serve_vs_gt`` on the palette workspace (and ``chain_serve_trace``); each
+    figure held to the README's less 1.0 dB, all of them printed before any is held."""
+    from palettenerf_torch.serve_vs_gt import serve_vs_gt
+
+    _clean(CHAIN_WS)
+    trainer, stage1 = depth_stage1(torch, dev, CHAIN_NERF_ARGS, "chain stage 1")
+    del trainer
+    extract = depth_extract(torch, dev, CHAIN_EXTRACT_ARGS, "chain")
+    log(f"chain extraction: P = {extract['palette_size']} from "
+        f"{extract['foreground_samples']} foreground samples (README.md:443: "
+        f"{README_PALETTE[0]} from {README_PALETTE[1]:.3g})")
+    trainer, palette = depth_palette(torch, dev, CHAIN_PALETTE_ARGS, "chain")
+    ws = trainer.workspace
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    served = serve_vs_gt(ws, PROC_TOYS, device=dev)
+    serve = dict(served.means(), seconds=time.perf_counter() - t0, bake_s=served.bake_s,
+                 exact_s=served.exact_s, exact_dropped=served.exact_dropped,
+                 sweep_vs_gt_views=served.sweep_vs_gt, exact_vs_gt_views=served.exact_vs_gt,
+                 sweep_vs_exact_views=served.sweep_vs_exact)
+    trace = chain_serve_trace(torch, dev, trainer, ws, served)
+    del trainer, served
+    got = {"stage1_val": stage1["val_psnr"], "palette_val": palette["val_psnr"],
+           **{k: serve[k] for k in ("sweep_vs_gt", "exact_vs_gt", "sweep_vs_exact")}}
+    log("chain: " + json.dumps({"got": got, "floors": CHAIN_FLOORS}, default=float))
+    short = {k: v for k, v in got.items() if not v > CHAIN_FLOORS[k]}
+    if short:
+        raise AssertionError(f"chain: at or under the floor (README less 1.0 dB): {short}")
+    return {"stage1": stage1, "extract": extract, "palette": palette, "serve": serve,
+            "serve_trace": trace, "floors": CHAIN_FLOORS}
+
+
+def depth_stage1_mode(torch, dev):
+    """The chain's stage 1 at plain ``-O`` (held to the chain's stage-1 floor) and at
+    ``-O2`` (its curve and its gap to ``-O``), 8000 steps each, no palette."""
+    out = {}
+    for name, argv in STAGE1_RUNS.items():
+        _clean(argv[argv.index("--workspace") + 1])
+        trainer, out[name] = depth_stage1(torch, dev, argv, f"stage1 -{name}")
+        del trainer
+    out["O2_minus_O_db"] = out["O2"]["val_psnr"] - out["O"]["val_psnr"]
+    log(f"stage1: val PSNR -O {out['O']['val_psnr']:.3f} dB, -O2 {out['O2']['val_psnr']:.3f} "
+        f"dB ({out['O2_minus_O_db']:+.3f} dB)")
+    _floor(out["O"]["val_psnr"], CHAIN_FLOORS["stage1_val"], "stage1 -O val PSNR")
+    return out
+
+
+def depth_bg(torch, dev):
+    """The bg + patch stage 1 at 8000 steps (ROADMAP C11): the val views against the
+    training target (the straight RGB) and against the CLI's target (the image on white),
+    held to the 300-step floor against the target."""
+    import numpy as np
+
+    from palettenerf_torch.data.provider import NeRFDataset
+    from palettenerf_torch.train.metrics import psnr
+
+    _clean("depth_bg")
+    trainer, out = depth_stage1(torch, dev, BG_DEPTH_ARGS, "bg + patch",
+                                mesh_resolution=BG_MESH_RESOLUTION)
+    target, white = [], []
+    for data in NeRFDataset(trainer.opt, type="val").iter_epoch():
+        img, pred = data["images"], trainer.eval_step_full(data)["image"]
+        target.append(psnr(pred, img[..., :3]))
+        white.append(psnr(pred, img[..., :3] * img[..., 3:] + (1.0 - img[..., 3:])))
+    out.update(val_psnr_target=float(np.mean(target)), val_psnr_white=float(np.mean(white)),
+               val_psnr_target_views=target)
+    log(f"bg + patch at step {trainer.global_step}: val PSNR {out['val_psnr_target']:.3f} dB "
+        f"against the training target, {out['val_psnr_white']:.3f} dB against the image on "
+        f"white (the CLI's meter: {out['val_psnr']:.3f})")
+    _floor(out["val_psnr_target"], BG_PATCH_PSNR_FLOOR, "bg + patch val PSNR (target)")
+    return out
+
+
+def _mip360_probe(torch, dev):
+    """``extra`` of the mip360 curve: both cascades' occupied cells and the median t the
+    train step's slots reach through the trained grid (view 0, 4096 rays)."""
+    import numpy as np
+
+    from palettenerf_torch.config import Config
+    from palettenerf_torch.data.provider import NeRFDataset
+    from palettenerf_torch.main_nerf import build_parser
+
+    train_ds = NeRFDataset(Config.from_args(build_parser().parse_args(
+        mip360_nerf_args(LLFF_DATA, MIP360_WS, 1))), type="train")
+
+    def probe(trainer):
+        gs = trainer.grid_state
+        bits = np.unpackbits(gs.bitfield.cpu().numpy(), bitorder="little")
+        m, _, _ = march_train_batch(torch, trainer, train_ds, 5)
+        return {"occupied_cells": [int(v) for v in bits.reshape(gs.density_grid.shape[0], -1)
+                                   .sum(1)],
+                "median_reach_t": float(m.ts.amax(1)[m.mask.any(1)].median())}
+
+    return probe
+
+
+def depth_mip360_explore(torch, dev):
+    """Stage 1 of the mip360 recipe alone at MIP360_EXPLORE_ITERS steps: the curve from
+    which the full mode's step count is chosen."""
+    _clean(MIP360_WS)
+    trainer, out = depth_stage1(
+        torch, dev, mip360_nerf_args(LLFF_DATA, MIP360_WS, MIP360_EXPLORE_ITERS),
+        "mip360 stage 1 (exploratory)", MIP360_MESH_RESOLUTION, _mip360_probe(torch, dev))
+    del trainer
+    return out
+
+
+def depth_mip360(torch, dev):
+    """``scripts/run_mip360.sh`` with ``configs_mip360/bonsai.sh`` on the fixture at
+    MIP360_ITERS steps: stage 1 with both cascades' cells and the march reach at every
+    eval, B1 on the last step's (pruned) stream, the per-ray extraction, the palette."""
+    _clean(MIP360_WS)
+    trainer, stage1 = depth_stage1(
+        torch, dev, mip360_nerf_args(LLFF_DATA, MIP360_WS, MIP360_ITERS), "mip360 stage 1",
+        MIP360_MESH_RESOLUTION, _mip360_probe(torch, dev))
+    del trainer
+    nerf_model = f"./results/{MIP360_WS}"
+    extract = depth_extract(torch, dev, mip360_extract_args(LLFF_DATA, nerf_model), "mip360")
+    trainer, palette = depth_palette(
+        torch, dev, mip360_palette_args(LLFF_DATA, nerf_model, MIP360_ITERS), "mip360")
+    del trainer
+    log(f"mip360: val PSNR stage 1 {stage1['val_psnr']:.3f} dB, palette "
+        f"{palette['val_psnr']:.3f} dB (an all-white frame {WHITE_FRAME_PSNR}; no floor: "
+        f"ROADMAP C16)")
+    return {"stage1": stage1, "extract": extract, "palette": palette}
+
+
+DEPTH_MODES = {"chain": depth_chain, "mip360": depth_mip360,
+               "mip360-explore": depth_mip360_explore, "stage1": depth_stage1_mode,
+               "bg": depth_bg}
+
+
+USAGE = ("usage: python3 chip_smoke.py [--dp-only | --real-scene-only [--trace-memory] | "
+         "--depth-only {chain,mip360,mip360-explore,stage1,bg}]")
+
+
+def parse_mode(args):
+    """(mode, argument) of the command line, or None when it is not one of USAGE's."""
+    if not args:
+        return "all", None
+    if args == ["--dp-only"]:
+        return "dp", None
+    if args in (["--real-scene-only"], ["--real-scene-only", "--trace-memory"]):
+        return "real", len(args) == 2
+    if len(args) == 2 and args[0] == "--depth-only" and args[1] in DEPTH_MODES:
+        return "depth", args[1]
+    return None
+
+
 def main() -> int:
-    dp_only = sys.argv[1:] == ["--dp-only"]
-    real_only = sys.argv[1:] == ["--real-scene-only"]
-    if sys.argv[1:] and not (dp_only or real_only):
-        print("usage: python3 chip_smoke.py [--dp-only | --real-scene-only]", file=sys.stderr)
+    mode = parse_mode(sys.argv[1:])
+    if mode is None:
+        print(USAGE, file=sys.stderr)
         return 2
+    mode, arg = mode
     if not os.path.isdir(os.path.join(ROOT, "palettenerf_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
               "(palettenerf_torch/ not found beside it)", file=sys.stderr)
@@ -2928,17 +3538,26 @@ def main() -> int:
         if lib.build_log:
             log(f"nvcc -Xptxas -v ({lib.name}):\n" + lib.build_log.strip())
 
-    if dp_only:
+    if mode == "dp":
         _, _, dp = phase_dp(torch, dev)
         log(f"data-parallel phase passed in {time.perf_counter() - t_start:.1f} s")
         print(nvidia_smi())
         print(json.dumps({"dp": dp}, default=float))
         return 0
-    if real_only:
-        _, _, stream, real = phase_real_scene(torch, dev)
+    if mode == "real":
+        _, _, stream, real = phase_real_scene(torch, dev, trace_memory=arg)
         log(f"real-scene phase passed in {time.perf_counter() - t_start:.1f} s")
         print(nvidia_smi())
         print(json.dumps({"real_scene": real, "real_scene_stream": stream}, default=float))
+        return 0
+    if mode == "depth":
+        summary = DEPTH_MODES[arg](torch, dev)
+        log(f"depth mode {arg} passed in {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"depth": arg, **summary}, default=float))
+        print(nvidia_smi())
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
         return 0
     kernels = phase_kernels(torch, dev)
     wg_entry = phase_window_gather(torch, dev)

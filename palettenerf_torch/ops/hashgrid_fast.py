@@ -38,6 +38,14 @@ from .hashgrid import PRIMES, HashGridSpec
 from .scatter import scatter_add
 
 _U32 = 0xFFFFFFFF
+# Points per pass of an encode that no gradient follows (eval renders, bakes, density
+# queries). Each pass materializes every corner's rows, indices and weights ([n, L, K, C]
+# f32 and [n, L, K] twice: 1 KiB a point at 16 levels), which over an eval chunk of 16,384
+# rays x 256 slots took 18.7 GiB (ROADMAP C17). The JAX encoder maps over chunks of 32,768
+# points (``_ENCODE_CHUNK``) and, outside autograd, keeps no residuals; this caps the port's
+# passes at the points of one train batch (4096 rays x 64 slots), whose buffers every
+# train step already holds.
+NO_GRAD_CHUNK = 1 << 18
 # Below this many columns per point the scatter kernel's column walk leaves over half the
 # lanes of a warp idle (a warp walks 32 columns), so such streams go in their own order.
 # On the -O2 (8 columns) and --fast_grad (16) streams the two orders time within their
@@ -338,8 +346,17 @@ def hashgrid_encode_fast(table: torch.Tensor, x01: torch.Tensor, spec: HashGridS
     if rand is not None:
         u = None if rand.u is None else rand.u.reshape(-1, L)
         lvls = rand.lvls
-    out = _HashGridEncode.apply(table, x, u, lvls, spec, scatter_dtype,
-                                bool(nearest_corner_grad), bool(stochastic), int(grad_levels))
+    if not (torch.is_grad_enabled() and table.requires_grad):
+        # no backward: no residuals, and the points in passes of NO_GRAD_CHUNK (each point's
+        # features depend on that point alone, so the result is the same bit for bit)
+        out = torch.cat([
+            _encode(table, spec, x[s:s + NO_GRAD_CHUNK],
+                    None if u is None else u[s:s + NO_GRAD_CHUNK], stochastic)[0]
+            for s in range(0, max(x.shape[0], 1), NO_GRAD_CHUNK)])
+    else:
+        out = _HashGridEncode.apply(table, x, u, lvls, spec, scatter_dtype,
+                                    bool(nearest_corner_grad), bool(stochastic),
+                                    int(grad_levels))
     return out.reshape(*lead, spec.output_dim)
 
 
