@@ -140,7 +140,13 @@ with its step, holds and times B1 on the last step's update stream, prints a JSO
 ends with the result line. ``chain``: ``scripts/run_blender.sh`` with
 ``configs_proc/proc_toys.sh`` and ``EXTRA_FLAGS="--fast_grad"`` at 8000 steps, the
 extraction at ``--extract_downscale 2``, 8000 palette steps and
-``palettenerf_torch.serve_vs_gt``, every figure held to the README's JAX figure less 1.0 dB.
+``palettenerf_torch.serve_vs_gt``, every figure held to the README's JAX figure less 1.0 dB,
+with the stage-1 grid's occupied cells, mean density and refreshes beside the JAX package's
+and the serve figures again from a 384^3 bake. ``deploy-ab``: the chain's palette stage and
+``serve_vs_gt`` on the JAX package's stage-1 field (the committed deploy export's density half,
+grid and extracted palette, copied to ``results/deploy_copy`` for the call).
+``chain-bf16-matmul``: the chain with its training stages' f32 matmuls at a TPU's default
+precision (bf16 operands); ``chain-bf16-matmul-grads``: the matrix products' gradients too.
 ``stage1``: its stage 1 at ``-O`` (held to the chain's stage-1 floor) and at ``-O2``.
 ``bg``: the bg + patch stage 1 of phase 11d at 8000 steps. ``mip360``: the recipe of phase 13
 at 8400 + 8400 steps, with both cascades' cells and the march reach at every eval;
@@ -3126,6 +3132,15 @@ CHAIN_FLOORS = {
     "sweep_vs_exact": 29.39 - 1.0,   # sweep vs exact (first two views)
 }
 README_PALETTE = (5, 6.6e6)          # README.md:443: 5 colours from 6.6M foreground samples
+# the JAX package's stage-1 grid at step 8000 of this recipe: the frozen grid_state of the
+# committed deploy export (deploy/proc_toys/palette_ep0080.ckpt), which its palette stage
+# inherited
+JAX_STAGE1_GRID = {"occupied_cells": 90_834, "mean_density": 4.4308724}
+# deploy-ab: the chain's palette stage on that export's stage-1 half; a copy of the repo
+# may leave deploy/ out, so the run copies deploy/proc_toys here (results/ is gitignored)
+DEPLOY_COPY = os.path.join("results", "deploy_copy")
+AB_WS = "depth_deploy_ab"
+AB_PALETTE_ARGS = blender_palette_args(f"./results/{AB_WS}", DEPTH_ITERS, ["--fast_grad"])
 # stage1: the chain's stage 1 at plain -O (exact trilinear gradients: held to the chain's
 # stage-1 floor) and at -O2 (no JAX figure: scripts/run_ab30k.sh never finished)
 STAGE1_RUNS = {"O": blender_nerf_args("depth_stage1_O", DEPTH_ITERS),
@@ -3342,31 +3357,111 @@ def chain_serve_trace(torch, dev, trainer, ws, served):
     return out
 
 
-def depth_chain(torch, dev):
-    """``scripts/run_blender.sh`` with ``configs_proc/proc_toys.sh`` at 8000 + 8000 steps in
-    the README's profile: stage 1, the extraction at ``--extract_downscale 2``, the palette
-    stage, then ``serve_vs_gt`` on the palette workspace (and ``chain_serve_trace``); each
-    figure held to the README's less 1.0 dB, all of them printed before any is held."""
+@contextlib.contextmanager
+def bf16_matmul_operands(torch, grads: bool = False):
+    """While open, every f32 ``matmul`` / ``mm`` / ``bmm`` / ``einsum`` / ``@`` that Python
+    code calls takes its operands rounded to bf16, with the products and the sum in f32:
+    what an f32 matmul at XLA's default precision computes on a TPU (one bf16 pass), where
+    the README's JAX figures were trained. The backward's matmuls (autograd's, not Python's)
+    take the rounded saved operands and the f32 gradient, and their results are rounded to
+    bf16 on the way back through the rounding; with ``grads`` a product of two matrices (the
+    MLPs' layers, the ray directions) rounds the gradient it is handed instead and returns
+    f32 results, as the TPU's backward dots do. A diagnostic: the port computes these in
+    f32."""
+    def bf(a):
+        return (a.to(torch.bfloat16).to(torch.float32)
+                if torch.is_tensor(a) and a.dtype == torch.float32 else a)
+
+    class Matmul(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, a, b):
+            a, b = bf(a), bf(b)
+            ctx.save_for_backward(a, b)
+            return a @ b
+
+        @staticmethod
+        def backward(ctx, g):
+            a, b = ctx.saved_tensors
+            g = bf(g)
+            return g @ b.T, a.T @ g
+
+    ops = {torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__,
+           torch.Tensor.__rmatmul__, torch.mm, torch.Tensor.mm, torch.bmm, torch.Tensor.bmm,
+           torch.einsum}
+
+    class Mode(torch.overrides.TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func not in ops:
+                return func(*args, **(kwargs or {}))
+            if (grads and func is not torch.einsum and len(args) == 2 and not kwargs
+                    and all(torch.is_tensor(a) and a.dtype == torch.float32 and a.dim() == 2
+                            for a in args)):
+                a, b = args if func is not torch.Tensor.__rmatmul__ else args[::-1]
+                return Matmul.apply(a, b)
+            args = tuple([bf(a) for a in a_] if isinstance(a_, (list, tuple)) else bf(a_)
+                         for a_ in args)
+            return func(*args, **(kwargs or {}))
+
+    with Mode():
+        yield
+
+
+def grid_stats(trainer) -> dict:
+    """The stage-1 occupancy grid: occupied cells of the bitfield, ``mean_density``, and
+    the refreshes made (``iter_density``), with the JAX package's stage-1 grid beside them
+    (``JAX_STAGE1_GRID``)."""
+    import numpy as np
+
+    gs = trainer.grid_state
+    bits = np.unpackbits(gs.bitfield.cpu().numpy(), bitorder="little")
+    out = {"occupied_cells": int(bits.sum()), "cells": int(bits.size),
+           "mean_density": float(gs.mean_density), "refreshes": int(gs.iter_density),
+           "jax": JAX_STAGE1_GRID}
+    log("stage-1 grid: " + json.dumps(out, default=float))
+    return out
+
+
+def serve_figures(torch, dev, ws, **kw) -> tuple:
+    """``serve_vs_gt`` on a palette workspace: (its result, its means with the seconds, the
+    bake's and the exact frames' seconds, the dropped samples and the per-view PSNRs)."""
     from palettenerf_torch.serve_vs_gt import serve_vs_gt
 
-    _clean(CHAIN_WS)
-    trainer, stage1 = depth_stage1(torch, dev, CHAIN_NERF_ARGS, "chain stage 1")
-    del trainer
-    extract = depth_extract(torch, dev, CHAIN_EXTRACT_ARGS, "chain")
-    log(f"chain extraction: P = {extract['palette_size']} from "
-        f"{extract['foreground_samples']} foreground samples (README.md:443: "
-        f"{README_PALETTE[0]} from {README_PALETTE[1]:.3g})")
-    trainer, palette = depth_palette(torch, dev, CHAIN_PALETTE_ARGS, "chain")
-    ws = trainer.workspace
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    served = serve_vs_gt(ws, PROC_TOYS, device=dev)
+    served = serve_vs_gt(ws, PROC_TOYS, device=dev, **kw)
     serve = dict(served.means(), seconds=time.perf_counter() - t0, bake_s=served.bake_s,
                  exact_s=served.exact_s, exact_dropped=served.exact_dropped,
                  sweep_vs_gt_views=served.sweep_vs_gt, exact_vs_gt_views=served.exact_vs_gt,
-                 sweep_vs_exact_views=served.sweep_vs_exact)
+                 sweep_vs_exact_views=served.sweep_vs_exact, **kw)
+    return served, serve
+
+
+def depth_chain(torch, dev, train_mode=contextlib.nullcontext):
+    """``scripts/run_blender.sh`` with ``configs_proc/proc_toys.sh`` at 8000 + 8000 steps in
+    the README's profile: stage 1 (with its grid's statistics), the extraction at
+    ``--extract_downscale 2``, the palette stage, then ``serve_vs_gt`` on the palette
+    workspace (and ``chain_serve_trace``, and the bake at 384^3); each figure held to the
+    README's less 1.0 dB, all of them printed before any is held. The three training
+    stages run inside ``train_mode()``, the serve figures outside it."""
+    _clean(CHAIN_WS)
+    with train_mode():
+        trainer, stage1 = depth_stage1(torch, dev, CHAIN_NERF_ARGS, "chain stage 1")
+    stage1["grid"] = grid_stats(trainer)
+    del trainer
+    with train_mode():
+        extract = depth_extract(torch, dev, CHAIN_EXTRACT_ARGS, "chain")
+    log(f"chain extraction: P = {extract['palette_size']} from "
+        f"{extract['foreground_samples']} foreground samples (README.md:443: "
+        f"{README_PALETTE[0]} from {README_PALETTE[1]:.3g})")
+    with train_mode():
+        trainer, palette = depth_palette(torch, dev, CHAIN_PALETTE_ARGS, "chain")
+    ws = trainer.workspace
+    served, serve = serve_figures(torch, dev, ws)
     trace = chain_serve_trace(torch, dev, trainer, ws, served)
     del trainer, served
+    # is the field sharper than the 256^3 bake resolves? the same figures from a 384^3 bake
+    _, serve384 = serve_figures(torch, dev, ws, resolution=384)
+    log("chain serve at 384^3: " + json.dumps(serve384, default=float))
     got = {"stage1_val": stage1["val_psnr"], "palette_val": palette["val_psnr"],
            **{k: serve[k] for k in ("sweep_vs_gt", "exact_vs_gt", "sweep_vs_exact")}}
     log("chain: " + json.dumps({"got": got, "floors": CHAIN_FLOORS}, default=float))
@@ -3374,7 +3469,59 @@ def depth_chain(torch, dev):
     if short:
         raise AssertionError(f"chain: at or under the floor (README less 1.0 dB): {short}")
     return {"stage1": stage1, "extract": extract, "palette": palette, "serve": serve,
-            "serve_trace": trace, "floors": CHAIN_FLOORS}
+            "serve_trace": trace, "serve_384": serve384, "floors": CHAIN_FLOORS}
+
+
+def depth_chain_bf16_matmul(torch, dev, grads=False):
+    """The chain with the f32 matmuls of its three training stages at a TPU's default
+    precision (``bf16_matmul_operands``; with ``grads`` the matrix products' gradients too),
+    the serve figures in f32: whether the distance of the port's field to the README's
+    comes from the TPU's matmul precision."""
+    return depth_chain(torch, dev, train_mode=lambda: bf16_matmul_operands(torch, grads))
+
+
+def depth_deploy_ab(torch, dev):
+    """The chain's palette stage on the JAX package's stage-1 field: the density half
+    (``encoder``, ``sigma_net``, ``color_net``) and the frozen grid of the committed deploy
+    export, with the palette JAX extracted, as a stage-1 workspace; then 8000 palette steps
+    with the chain's flags and ``serve_vs_gt``. A copy of the repo may leave ``deploy/`` out:
+    copy ``deploy/proc_toys`` to ``DEPLOY_COPY`` (gitignored) for the run. Sweep-vs-exact
+    near JAX's 29.39 dB puts the chain's shortfall on the port's stage-1 field, far under it
+    on the palette stage. Diagnostic: the figures are printed beside the chain's floors,
+    not held to them."""
+    import shutil
+
+    import numpy as np
+
+    from palettenerf_torch.train import checkpoint as ckpt_lib
+
+    src = os.path.join(ROOT, DEPLOY_COPY)
+    ckpt = os.path.join(src, "palette_ep0080.ckpt")
+    if not os.path.exists(ckpt):
+        raise FileNotFoundError(f"{ckpt} not found: copy deploy/proc_toys there for the call")
+    _clean(AB_WS)
+    params, gs = ckpt_lib.load_palette_checkpoint(ckpt)
+    nerf_ws = os.path.join(ROOT, "results", AB_WS, "version_1")
+    ckpt_lib.save_reference_checkpoint(
+        os.path.join(nerf_ws, "checkpoints", "ngp_ep0080.ckpt"),
+        {k: params[k] for k in ("encoder", "sigma_net", "color_net")}, epoch=80,
+        global_step=8000, grid_state=gs)
+    pal_ws = os.path.join(ROOT, "results_palette", AB_WS, "normalized_version_1")
+    os.makedirs(pal_ws)
+    for name in ("palette.npz", "hist_weights.npz"):
+        shutil.copy(os.path.join(src, name), pal_ws)
+    bits = np.unpackbits(np.asarray(gs["bitfield"]), bitorder="little")
+    grid = {"occupied_cells": int(bits.sum()), "mean_density": float(gs["mean_density"]),
+            "refreshes": int(gs["iter_density"])}
+    log("deploy A/B: JAX's stage-1 grid " + json.dumps(grid))
+    trainer, palette = depth_palette(torch, dev, AB_PALETTE_ARGS, "deploy A/B")
+    ws = trainer.workspace
+    del trainer
+    _, serve = serve_figures(torch, dev, ws)
+    got = {"palette_val": palette["val_psnr"],
+           **{k: serve[k] for k in ("sweep_vs_gt", "exact_vs_gt", "sweep_vs_exact")}}
+    log("deploy A/B: " + json.dumps({"got": got, "chain_floors": CHAIN_FLOORS}, default=float))
+    return {"jax_stage1_grid": grid, "palette": palette, "serve": serve}
 
 
 def depth_stage1_mode(torch, dev):
@@ -3474,11 +3621,14 @@ def depth_mip360(torch, dev):
 
 DEPTH_MODES = {"chain": depth_chain, "mip360": depth_mip360,
                "mip360-explore": depth_mip360_explore, "stage1": depth_stage1_mode,
-               "bg": depth_bg}
+               "bg": depth_bg, "deploy-ab": depth_deploy_ab,
+               "chain-bf16-matmul": depth_chain_bf16_matmul,
+               "chain-bf16-matmul-grads": lambda torch, dev: depth_chain_bf16_matmul(
+                   torch, dev, grads=True)}
 
 
 USAGE = ("usage: python3 chip_smoke.py [--dp-only | --real-scene-only [--trace-memory] | "
-         "--depth-only {chain,mip360,mip360-explore,stage1,bg}]")
+         "--depth-only {" + ",".join(DEPTH_MODES) + "}]")
 
 
 def parse_mode(args):

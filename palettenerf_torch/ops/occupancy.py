@@ -8,7 +8,7 @@ The refresh jitter is an optional ``noise`` argument so tests can pass in the JA
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -77,15 +77,15 @@ def update_density_grid(
     grid_size: int = 128,
     partial_fraction: int = 1,
     slab_index: int = 0,
-    noise: Optional[torch.Tensor] = None,
-    generator: Optional[torch.Generator] = None,
+    *,
+    noise: torch.Tensor,
 ) -> GridState:
     """One density-grid refresh: EMA ``max(old*decay, new)`` on trained cells, then
     repack at ``min(mean_density, density_thresh)`` (nerf/renderer.py:485-553).
 
     ``partial_fraction > 1`` refreshes only the rotating slab ``slab_index`` of
     1/fraction of the cells. ``noise`` [CAS, cells, 3] in [-1, 1] is the jitter within
-    each cell; drawn from ``generator`` when None.
+    each refreshed cell (the trainer's ``Draws.refresh_noise``).
     """
     cascade = state.density_grid.shape[0]
     device = state.density_grid.device
@@ -95,8 +95,6 @@ def update_density_grid(
         q = H3 // partial_fraction
         start = (slab_index % partial_fraction) * q
         xyz = xyz[:, start:start + q]
-    if noise is None:
-        noise = torch.rand(xyz.shape, generator=generator, device=device) * 2.0 - 1.0
     pts = xyz + noise * half[:, None, None]
     tmp = (density_fn(pts.reshape(-1, 3)).reshape(cascade, -1) * density_scale).float()
 

@@ -64,6 +64,7 @@ from ..ops.occupancy import GridState
 from ..render.palette_renderer import (RegionEdit, StylizerParams, render_palette_eval,
                                        render_palette_train)
 from . import checkpoint as ckpt_lib
+from .draws import Draws
 from .trainer import Trainer, eval_gt, gt_to_color_space
 
 
@@ -152,18 +153,21 @@ class PaletteTrainer(Trainer):
                                             hist_weights))
 
     def train_step(self, rays_o, rays_d, images, gt_feat=None, bg=None, noise=None,
-                   jit_u=None, enc_u=None, enc_lvls=None, inds=None, width=None):
+                   jit_u=None, enc_u=None, enc_lvls=None, inds=None, width=None,
+                   draws: Optional[Draws] = None):
         """One optimizer step on a ray batch; returns (loss, per_ray), detached.
 
         ``bg`` [N, 3] (background for RGBA gt), ``noise`` [N] (march jitter), ``jit_u``
         [N*S, 3] (smooth-loss jitter) and, under ``-O2``, the encode draws ``enc_u`` /
-        ``enc_lvls`` are drawn from the trainer's generator, in this order, when None.
+        ``enc_lvls`` are taken from ``draws`` (the trainer's draw source when None), in
+        this order, when None.
         ``gt_feat`` [N, clip_dim] is needed with ``pred_clip``; the batch's pixel indices
         ``inds`` [N] and image ``width`` with the patch-smooth term. On a rank of a
         ``--n_devices`` run, as ``Trainer.train_step``: the rays, images, ``gt_feat`` and
         ``inds`` are the rank's shard, the draws the whole batch's.
         """
         opt, spec, dev = self.opt, self.palette_spec, self.device
+        draws = draws or self.draws
         shard = self._step_shard(rays_o.shape[0])
         n = rays_o.shape[0] if shard is None else shard.n
         smooth = self.require_smooth_loss
@@ -173,20 +177,19 @@ class PaletteTrainer(Trainer):
         images = gt_to_color_space(opt, images)
         if images.shape[-1] == 4 and spec.bg_radius <= 0:
             if bg is None:
-                bg = torch.rand((n, 3), generator=self.generator, device=dev)
+                bg = draws.background(n)
             bg = self._take(bg, shard)
             gt = images[..., :3] * images[..., 3:] + bg * (1.0 - images[..., 3:])
         else:
             bg = torch.ones((3,), dtype=torch.float32, device=dev)
             gt = images[..., :3]
         if noise is None:
-            noise = torch.rand((n,), generator=self.generator, device=dev)
+            noise = draws.jitter(n)
         noise = self._take(noise, shard)
         if smooth and jit_u is None:
-            jit_u = torch.rand((n * self.train_settings.num_samples, 3),
-                               generator=self.generator, device=dev)
+            jit_u = draws.smooth_jitter(n * self.train_settings.num_samples)
         jit_u = self._take(jit_u, shard)
-        rand = self._encode_rand(n, enc_u, enc_lvls, shard)
+        rand = self._encode_rand(n, enc_u, enc_lvls, shard, draws)
 
         p = self.params
         out = render_palette_train(p, spec, self.grid_state.bitfield, rays_o, rays_d,
@@ -219,11 +222,11 @@ class PaletteTrainer(Trainer):
         loss = self._update(loss, zero_grad_for=(p["basis_color"],), param_loss=param_loss)
         return loss, per_ray.detach()
 
-    def _batch_step(self, data: dict, **draws):
+    def _batch_step(self, data: dict, **given):
         """The palette-loss step from a collated batch (the host-sampled epoch and
-        ``train_gui``); ``draws`` (``bg``, ``noise``, ``jit_u``, ``enc_u``, ``enc_lvls``)
-        replace the generator's draws. Without LSeg features in the batch, ``pred_clip``
-        is held to zeros, as in the JAX trainer."""
+        ``train_gui``); ``given`` (``bg``, ``noise``, ``jit_u``, ``enc_u``, ``enc_lvls``)
+        replace the draw source's draws, and may name the source (``draws``). Without LSeg
+        features in the batch, ``pred_clip`` is held to zeros, as in the JAX trainer."""
         images = self._batch(data, "images")
         gt_feat = None
         if self.palette_spec.pred_clip:
@@ -233,7 +236,7 @@ class PaletteTrainer(Trainer):
         inds = None if "inds" not in data else self._batch(data, "inds", np.int64)
         return self.train_step(self._batch(data, "rays_o"), self._batch(data, "rays_d"),
                                images, gt_feat=gt_feat, inds=inds, width=data.get("W"),
-                               **draws)
+                               **given)
 
     def _apply_schedule(self):
         """The schedule flags the epoch count implies (palette/utils.py:651-674)."""
@@ -244,9 +247,11 @@ class PaletteTrainer(Trainer):
         if self.epoch >= opt.smooth_loss_start_epoch:
             self.require_smooth_loss = True
 
-    def train(self, train_ds, valid_ds=None, max_epochs: int = 1):
-        # the density grid is inherited frozen from the NeRF checkpoint: no refresh and
-        # no mark_untrained (palette/utils.py:644-646)
+    def train(self, train_ds, valid_ds=None, max_epochs: int = 1,
+              draws: Optional[Draws] = None):
+        """Train to ``max_epochs``; ``draws`` replaces the trainer's draw source. The
+        density grid is inherited frozen from the NeRF checkpoint: no refresh and no
+        mark_untrained (palette/utils.py:644-646)."""
         opt = self.opt
         ckpt_every = opt.ckpt_interval if opt.ckpt_interval > 0 else 1
         self._apply_schedule()  # resume: what the end-of-epoch updates below had left
@@ -254,7 +259,7 @@ class PaletteTrainer(Trainer):
             self.epoch += 1
             self.lambda_weight = opt.lambda_weight * max(
                 0.0, 1.0 - self.epoch / opt.lweight_decay_epoch)
-            self.train_one_epoch(train_ds)
+            self.train_one_epoch(train_ds, draws)
             if self.epoch % ckpt_every == 0 or self.epoch == max_epochs:
                 self.save_checkpoint(best=False)
             if valid_ds is not None and self.epoch % self.eval_interval == 0:
@@ -275,7 +280,7 @@ class PaletteTrainer(Trainer):
                 feats.shape[0], -1, feats.shape[-1]).to(self.device)
         super()._upload(train_ds)
 
-    def _device_epoch(self, train_ds) -> list:
+    def _device_epoch(self, train_ds, draws: Draws) -> list:
         """Pixels sampled and rays generated on the device (no grid refresh: the grid is
         stage 1's); returns the step losses."""
         self._upload(train_ds)
@@ -284,16 +289,14 @@ class PaletteTrainer(Trainer):
         B = self._dev_poses.shape[0]
         H, W = train_ds.H, train_ds.W
         intr = [float(v) for v in train_ds.intrinsics]
-        order = torch.randperm(B, generator=self.generator, device=self.device).tolist()
         losses = []
-        for idx in order:
-            inds = torch.randint(0, H * W, (self.opt.num_rays,), generator=self.generator,
-                                 device=self.device)
+        for idx in draws.order(B):
+            inds = draws.pixels(self.opt.num_rays, H * W)
             inds = self._take(inds, self._batch_shard(self.opt.num_rays))
             pix = self._dev_images[idx][inds]
             gt_feat = None if self._dev_feats is None else self._dev_feats[idx][inds]
             rays_o, rays_d = gen_rays_torch(self._dev_poses[idx], intr, H, W, inds)
-            loss, _ = self.train_step(rays_o, rays_d, pix, gt_feat=gt_feat)
+            loss, _ = self.train_step(rays_o, rays_d, pix, gt_feat=gt_feat, draws=draws)
             losses.append(loss)
             self.global_step += 1
         return losses

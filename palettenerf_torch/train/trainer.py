@@ -13,15 +13,19 @@ Port of the ``-O`` path of ``palettenerf_tpu/train/trainer.py``:
   :194-204, its conv stack made once per trainer on its device). With ``--color_space
   linear`` the gt goes to linear space in every step and every eval (:177-178,
   :546-547); renders stay linear.
-- Density-grid refresh every ``update_extra_interval`` steps: full below
-  ``grid_update_warmup``, then a rotating 1/4 slab (:378-384); never-seen cells are
-  marked at the start of training (:442-446).
+- Density-grid refresh: full below ``grid_update_warmup``, then the rotating 1/4 slab
+  ``global_step // update_extra_interval`` (:378-384); never-seen cells are marked at the
+  start of training (:442-446).
 - Training runs on device-resident images with pixels sampled and rays generated on
-  the device (the counterpart of ``scan_steps`` :281-320, as a Python loop), except
-  where the JAX trainer takes its host-sampled epoch (``supports_fast_path`` false,
-  :322-330): with ``--error_map``, ``--random_size`` or ``--patch_size`` the batches come from
-  ``train_ds.iter_epoch()`` on the host, and the error map is updated after each step
-  (:462-490).
+  the device (``train_one_epoch_fast`` and its ``scan_steps``, :281-372, as a Python
+  loop): the epoch's order is cut into runs of ``update_extra_interval`` steps, the last
+  one shorter when that does not divide the image count, and the grid is refreshed at the
+  start of every run (:352-356), so the refreshes restart at each epoch's first step.
+  Where the JAX trainer takes its host-sampled epoch (``supports_fast_path`` false,
+  :322-330), with ``--error_map``, ``--random_size`` or ``--patch_size``, the batches come
+  from ``train_ds.iter_epoch()`` on the host, the grid is refreshed before every step
+  whose ``global_step`` is a multiple of ``update_extra_interval`` (:466), and the error
+  map is updated after each step (:462-490).
 - ``-O2`` (``--fast_grad --stochastic_trilerp --grad_levels 8``) and ``--gridtype
   hash_xadd`` act in the encoder (``ops/hashgrid_fast.py``); each step draws its encode
   randomness (``models.nerf.encode_rand_for``) after the background and the jitter.
@@ -51,8 +55,9 @@ Port of the ``-O`` path of ``palettenerf_tpu/train/trainer.py``:
   ``--march_groups`` (the hierarchical march; -1 resolves to 0, :656-670).
 
 All randomness comes from one ``torch.Generator`` on the trainer's device, seeded
-with ``opt.seed`` (the host samplers of ``iter_epoch`` use the dataset's own NumPy
-generator). ``--rand_pose`` (CLIP guidance, no weights in the repository) raises
+with ``opt.seed``, through the trainer's draw source (``draws.Draws``; ``train`` takes
+another in its place); the host samplers of ``iter_epoch`` use the dataset's own NumPy
+generator. ``--rand_pose`` (CLIP guidance, no weights in the repository) raises
 (``check_ported``).
 """
 
@@ -72,7 +77,7 @@ from ..config import Config
 from ..data.png import write_png
 from ..data.rays import gen_rays, gen_rays_torch
 from ..models.mlp import param_leaves
-from ..models.nerf import NeRFSpec, encode_rand_for, init_nerf, nerf_density
+from ..models.nerf import NeRFSpec, init_nerf, nerf_density
 from ..ops.hashgrid_fast import EncodeRand
 from ..ops.occupancy import (GridState, bake_fine_bitfield, init_grid_state,
                              mark_untrained_grid, unpackbits, update_density_grid)
@@ -81,6 +86,7 @@ from ..render.nerf_renderer import (RenderSettings, render_nerf_eval, render_ner
                                     train_rows)
 from ..utils.color import srgb_to_linear
 from . import checkpoint as ckpt_lib
+from .draws import Draws
 from .metrics import PSNRMeter, make_rlpips_kernels, rlpips_distance
 
 _DENSITY_CHUNK = 1 << 18  # grid points per density query during a refresh
@@ -176,6 +182,7 @@ class Trainer:
         self.log_path = os.path.join(workspace, f"log_{name}.txt")
 
         self.generator = torch.Generator(device=self.device).manual_seed(opt.seed)
+        self.draws = Draws(self.generator)  # the draw source of every step and refresh
         self._set_params(params if params is not None else self._init_params())
 
         cascade = spec_cascade(spec)
@@ -282,10 +289,11 @@ class Trainer:
         return t if shard is None or t is None else shard.take(t)
 
     def _encode_rand(self, n_rays: int, enc_u=None, enc_lvls=None,
-                     shard: Optional[parallel.RayShard] = None) -> Optional[EncodeRand]:
+                     shard: Optional[parallel.RayShard] = None,
+                     draws: Optional[Draws] = None) -> Optional[EncodeRand]:
         """The step's encode draws: ``enc_u`` [train_rows, L] / ``enc_lvls`` [K] as given,
-        or (both None) drawn from the generator, ``u`` then ``lvls``; None when the spec's
-        profile uses none. ``train_rows`` is n_rays * S, or the compact budget with
+        or (both None) from ``draws`` (the trainer's), ``u`` then ``lvls``; None when the
+        spec's profile uses none. ``train_rows`` is n_rays * S, or the compact budget with
         ``--train_compact_frac`` (JAX :178-186). On a rank (``shard``), ``n_rays`` is the
         whole batch's and ``u`` is cut to the rank's rows: its rays' slots, or with the
         compact budget (budget / n_devices per rank, where JAX has one budget for the
@@ -293,8 +301,8 @@ class Trainer:
         if enc_u is not None or enc_lvls is not None:
             rand = EncodeRand(u=enc_u, lvls=enc_lvls)
         else:
-            rand = encode_rand_for(self.generator, self.spec,
-                                   train_rows(self.train_settings, n_rays))
+            rand = (draws or self.draws).encode(self.spec,
+                                                train_rows(self.train_settings, n_rays))
         if shard is None or rand is None or rand.u is None:
             return rand
         if self.train_settings.compact_frac > 0:
@@ -311,35 +319,36 @@ class Trainer:
                 0 if self._overflow is None else self._overflow)
 
     def train_step(self, rays_o, rays_d, images, bg=None, noise=None, enc_u=None,
-                   enc_lvls=None):
+                   enc_lvls=None, draws: Optional[Draws] = None):
         """One optimizer step on a ray batch; returns (loss, per_ray), detached.
 
         ``bg`` [N, 3] (background for RGBA gt), ``noise`` [N] (march jitter) and, under
-        ``-O2``, the encode draws ``enc_u`` / ``enc_lvls`` are drawn from the trainer's
-        generator, in this order, when None. With the patch loss the batch is
-        ``patch_size``^2-ray patches in ``data/rays.py``'s order.
+        ``-O2``, the encode draws ``enc_u`` / ``enc_lvls`` are taken from ``draws`` (the
+        trainer's draw source when None), in this order, when None. With the patch loss
+        the batch is ``patch_size``^2-ray patches in ``data/rays.py``'s order.
 
         On a rank of a ``--n_devices`` run the rays, ``images`` and ``per_ray`` are the
         rank's shard of the batch, while the draws (given or drawn) are the whole
         batch's, and the loss is the whole batch's.
         """
         opt, dev = self.opt, self.device
+        draws = draws or self.draws
         shard = self._step_shard(rays_o.shape[0])
         n = rays_o.shape[0] if shard is None else shard.n
         images = gt_to_color_space(opt, images)
         c = images.shape[-1]
         if c == 4 and self.spec.bg_radius <= 0 and not opt.no_bg:
             if bg is None:
-                bg = torch.rand((n, 3), generator=self.generator, device=dev)
+                bg = draws.background(n)
             bg = self._take(bg, shard)
             gt = images[..., :3] * images[..., 3:] + bg * (1.0 - images[..., 3:])
         else:
             bg = torch.ones((3,), dtype=torch.float32, device=dev)
             gt = images[..., :3]
         if noise is None:
-            noise = torch.rand((n,), generator=self.generator, device=dev)
+            noise = draws.jitter(n)
         noise = self._take(noise, shard)
-        rand = self._encode_rand(n, enc_u, enc_lvls, shard)
+        rand = self._encode_rand(n, enc_u, enc_lvls, shard, draws)
 
         out = render_nerf_train(self.params, self.spec, self.grid_state.bitfield,
                                 rays_o, rays_d, self.train_settings,
@@ -400,25 +409,34 @@ class Trainer:
             return torch.cat([self._field_density(params, self.spec, c)["sigma"]
                               for c in pts.split(_DENSITY_CHUNK)])
 
-    def refresh_grid(self):
-        """Full refresh during warmup, rotating 1/4 slab after (nerf/renderer.py:479-537)."""
+    def refresh_grid(self, draws: Optional[Draws] = None):
+        """Full refresh during warmup, then the rotating 1/4 slab ``global_step //
+        update_extra_interval`` (nerf/renderer.py:479-537; JAX :378-384). The jitter comes
+        from ``draws`` (the trainer's draw source when None)."""
         opt = self.opt
         kw = dict(bound=self.spec.bound, density_thresh=opt.density_thresh,
-                  grid_size=opt.grid_size, generator=self.generator)
+                  grid_size=opt.grid_size)
+        cells = opt.grid_size ** 3
         if self.global_step >= opt.grid_update_warmup:
             kw.update(partial_fraction=4,
                       slab_index=self.global_step // opt.update_extra_interval)
+            cells //= 4
+        noise = (draws or self.draws).refresh_noise(
+            (self.grid_state.density_grid.shape[0], cells, 3))
         self.grid_state = update_density_grid(
-            self.grid_state, lambda p: self._density(self.params, p), **kw)
+            self.grid_state, lambda p: self._density(self.params, p), noise=noise, **kw)
 
-    def train(self, train_ds, valid_ds=None, max_epochs: int = 1):
+    def train(self, train_ds, valid_ds=None, max_epochs: int = 1,
+              draws: Optional[Draws] = None):
+        """Train to ``max_epochs``; ``draws`` replaces the trainer's draw source for these
+        epochs (``draws.Draws`` says what it draws)."""
         self.grid_state = mark_untrained_grid(
             self.grid_state, torch.as_tensor(train_ds.poses), train_ds.intrinsics,
             self.spec.bound, self.opt.min_near, self.opt.filter_close_point,
             self.opt.grid_size)
         for _ in range(max_epochs - self.epoch):
             self.epoch += 1
-            self.train_one_epoch(train_ds)
+            self.train_one_epoch(train_ds, draws)
             self._fine_bitfield = None  # the weights and the grid changed
             self.save_checkpoint(best=False)
             if valid_ds is not None and self.epoch % self.eval_interval == 0:
@@ -432,15 +450,17 @@ class Trainer:
         opt = self.opt
         return bool(opt.error_map or opt.random_size > 0 or opt.patch_size > 1)
 
-    def train_one_epoch(self, train_ds):
+    def train_one_epoch(self, train_ds, draws: Optional[Draws] = None):
         """One step per training image, in a random order: device-sampled pixels on
-        device-resident images, or the host-sampled epoch (``host_sampled``)."""
+        device-resident images, or the host-sampled epoch (``host_sampled``). ``draws``
+        replaces the trainer's draw source."""
         t0 = time.time()
         self._overflow = None
+        draws = draws or self.draws
         if self.host_sampled():
-            losses = self._host_epoch(train_ds)
+            losses = self._host_epoch(train_ds, draws)
         else:
-            losses = self._device_epoch(train_ds)
+            losses = self._device_epoch(train_ds, draws)
         avg = float(torch.stack(losses).mean())
         self._check_refused()  # the host has just waited for the device
         self.stats["loss"].append(avg)
@@ -473,36 +493,39 @@ class Trainer:
             self._dev_poses = torch.as_tensor(train_ds.poses).to(self.device)
             self._dev_src = train_ds
 
-    def _device_epoch(self, train_ds) -> list:
-        """Pixels sampled and rays generated on the device; returns the step losses."""
+    def _device_epoch(self, train_ds, draws: Draws) -> list:
+        """Pixels sampled and rays generated on the device, the grid refreshed at the
+        start of every run of ``update_extra_interval`` steps of the epoch (JAX
+        ``train_one_epoch_fast``, :352-356); returns the step losses."""
         self._upload(train_ds)
         B = self._dev_poses.shape[0]
         H, W = train_ds.H, train_ds.W
         intr = [float(v) for v in train_ds.intrinsics]
-        order = torch.randperm(B, generator=self.generator, device=self.device).tolist()
+        order = draws.order(B)
         losses = []
-        for idx in order:
-            if self.global_step % self.opt.update_extra_interval == 0:
-                self.refresh_grid()
-            inds = torch.randint(0, H * W, (self.opt.num_rays,), generator=self.generator,
-                                 device=self.device)
+        for i, idx in enumerate(order):
+            if i % self.opt.update_extra_interval == 0:
+                self.refresh_grid(draws)
+            inds = draws.pixels(self.opt.num_rays, H * W)
             inds = self._take(inds, self._batch_shard(self.opt.num_rays))
             pix = self._dev_images[idx][inds]
             rays_o, rays_d = gen_rays_torch(self._dev_poses[idx], intr, H, W, inds)
-            loss, _ = self.train_step(rays_o, rays_d, pix)
+            loss, _ = self.train_step(rays_o, rays_d, pix, draws=draws)
             losses.append(loss)
             self.global_step += 1
         return losses
 
-    def _host_epoch(self, train_ds) -> list:
+    def _host_epoch(self, train_ds, draws: Draws) -> list:
         """Batches collated on the host by ``train_ds.iter_epoch()`` (its error-map and
-        paired-pixel samplers), one upload each; the error map takes each step's per-ray
-        loss (trainer.py:462-490). Returns the step losses."""
+        paired-pixel samplers), one upload each, the grid refreshed before every step
+        whose ``global_step`` is a multiple of ``update_extra_interval`` (JAX :466); the
+        error map takes each step's per-ray loss (trainer.py:462-490). Returns the step
+        losses."""
         losses = []
         for data in train_ds.iter_epoch():
             if not self.grid_frozen and self.global_step % self.opt.update_extra_interval == 0:
-                self.refresh_grid()
-            loss, per_ray = self._batch_step(data)
+                self.refresh_grid(draws)
+            loss, per_ray = self._batch_step(data, draws=draws)
             losses.append(loss)
             self.global_step += 1
             if "inds_coarse" in data:
@@ -666,15 +689,16 @@ class Trainer:
         return torch.as_tensor(self._take(a, self._batch_shard(len(data["rays_o"]))),
                                device=self.device)
 
-    def _batch_step(self, data: dict, **draws):
+    def _batch_step(self, data: dict, **given):
         """One optimizer step from a collated batch; returns (loss, per_ray), detached.
-        ``draws`` (``bg``, ``noise``, ``enc_u``, ``enc_lvls``) replace the generator's."""
+        ``given`` (``bg``, ``noise``, ``enc_u``, ``enc_lvls``) replace the draw source's
+        draws, and may name the source (``draws``)."""
         return self.train_step(self._batch(data, "rays_o"), self._batch(data, "rays_d"),
-                               self._batch(data, "images"), **draws)
+                               self._batch(data, "images"), **given)
 
-    def _gui_train_step(self, data: dict, **draws) -> torch.Tensor:
+    def _gui_train_step(self, data: dict, **given) -> torch.Tensor:
         """The GUI's training step (``_batch_step``); returns the loss, detached."""
-        return self._batch_step(data, **draws)[0]
+        return self._batch_step(data, **given)[0]
 
     def test_gui(self, pose, intrinsics, W: int, H: int, downscale: float = 1.0,
                  bg_color=None) -> dict:

@@ -107,8 +107,9 @@ def test_port_imports_nothing_of_jax():
     and the modules of the palette stages, of the editing path and the leaf ops, the
     rLPIPS / LPIPS parts of the metrics, ray data-parallel training, the native
     extraction kernels, the profiling utilities, the image input (the JPEG decoder's
-    binding in ``native``, ``data.image``, ``data.png``) and the serve-vs-ground-truth
-    check (``serve_vs_gt``) are among those imported."""
+    binding in ``native``, ``data.image``, ``data.png``), the serve-vs-ground-truth
+    check (``serve_vs_gt``) and the trainers' draw source (``train.draws``) are among those
+    imported."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import palettenerf_torch\n"
@@ -122,7 +123,8 @@ def test_port_imports_nothing_of_jax():
         "       'extraction.hull', 'extraction.tan18', 'gui', 'gui.camera', 'gui.headless',\n"
         "       'gui.dpg_gui', 'utils.mcubes', 'ops.freq', 'ops.encoding', 'ops.losses',\n"
         "       'ops.morton', 'ops.sampling', 'train.metrics', 'parallel', 'parallel.ranks',\n"
-        "       'native', 'utils.profiling', 'data.image', 'data.png', 'serve_vs_gt']\n"
+        "       'native', 'utils.profiling', 'data.image', 'data.png', 'serve_vs_gt',\n"
+        "       'train.draws']\n"
         "bad += [m for m in new if 'palettenerf_torch.' + m not in sys.modules]\n"
         "metrics = sys.modules['palettenerf_torch.train.metrics']\n"
         "bad += [a for a in ('make_rlpips_kernels', 'rlpips_distance', 'RLPIPSMeter',\n"
