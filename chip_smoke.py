@@ -150,7 +150,13 @@ precision (bf16 operands); ``chain-bf16-matmul-grads``: the matrix products' gra
 ``stage1``: its stage 1 at ``-O`` (held to the chain's stage-1 floor) and at ``-O2``.
 ``bg``: the bg + patch stage 1 of phase 11d at 8000 steps. ``mip360``: the recipe of phase 13
 at 8400 + 8400 steps, with both cascades' cells and the march reach at every eval;
-``mip360-explore``: its stage 1 alone at 20,020 steps.
+``mip360-explore``: its stage 1 alone at 20,020 steps. ``llff``: ``scripts/run_llff.sh`` with
+``configs_llff/fern.sh`` on the forward-facing JPEG fixture ``data_proc/proc_toys_ff``
+(``scripts/make_ff_fixture.py``) at fern's 10,000 + 10,000 steps: stage 1 with its test tail
+and 256^3 mesh (each cascade's occupied cells and mean density at every eval), the per-ray
+extraction without ``--offset`` as the recipe runs it, the palette stage with its test tail;
+val and test PSNR of both stages beside the fixture's mean-colour frame and the black frame,
+eval seconds per 504x378 frame, peak memory.
 
 Launch counts are zeroed just before each main path and read just after (the data-parallel
 ranks count in their own processes and report them); every kernel of the train, palette
@@ -3161,6 +3167,36 @@ MIP360_MESH_RESOLUTION = REAL_MESH_RESOLUTION
 WHITE_FRAME_PSNR = 7.59              # an all-white frame on the fixture's val view 0
 
 
+# llff: run_llff.sh with configs_llff/fern.sh on the forward-facing fixture (no real LLFF
+# scene is in the repository; scripts/make_ff_fixture.py), at fern's own iters
+FF_DATA = "./data_proc/proc_toys_ff"
+LLFF_WS = "depth_llff"
+LLFF_ITERS = 10_000                  # configs_llff/fern.sh: iters
+
+
+def llff_nerf_args(data_dir, name, iters, extra=()):
+    """``scripts/run_llff.sh -m nerf`` with ``configs_llff/fern.sh``."""
+    return [data_dir, "--workspace", name, "--iters", str(iters), "--bound", "2", "--offset",
+            "0", "0", "1.5", "--scale", "0.25", "--bg_radius", "0", "--density_thresh", "10",
+            "--lambda_sparse", "0.05", "--min_near", "0.02", "--no_bg", "-O", *extra]
+
+
+def llff_extract_args(data_dir, nerf_model):
+    """``scripts/run_llff.sh -m extract`` with ``configs_llff/fern.sh``: the per-ray
+    extraction, and no ``--offset`` (the recipe's extract block passes none)."""
+    return [data_dir, nerf_model, "-O", "--bound", "2", "--scale", "0.25", "--bg_radius", "0",
+            "--density_thresh", "10", "--min_near", "0.02", "--extract_palette",
+            "--use_normalized_palette"]
+
+
+def llff_palette_args(data_dir, nerf_model, iters, extra=()):
+    """``scripts/run_llff.sh -m palette`` with ``configs_llff/fern.sh``."""
+    return [data_dir, nerf_model, "-O", "--iters", str(iters), "--bound", "2", "--scale",
+            "0.25", "--offset", "0", "0", "1.5", "--bg_radius", "0", "--density_thresh", "10",
+            "--min_near", "0.02", "--random_size", "0", "--use_initialization_from_rgbxy",
+            "--use_normalized_palette", "--datatype", "llff", *extra]
+
+
 def _clean(name):
     import shutil
 
@@ -3619,7 +3655,122 @@ def depth_mip360(torch, dev):
     return {"stage1": stage1, "extract": extract, "palette": palette}
 
 
-DEPTH_MODES = {"chain": depth_chain, "mip360": depth_mip360,
+def cascade_stats(trainer) -> dict:
+    """Each occupancy cascade's occupied cells (bitfield) and mean density over the cells
+    the training cameras see (the marked ones, -1, left out), and the grid's
+    ``mean_density``."""
+    import numpy as np
+
+    gs = trainer.grid_state
+    grid = gs.density_grid.cpu().numpy()
+    bits = np.unpackbits(gs.bitfield.cpu().numpy(), bitorder="little").reshape(grid.shape)
+    return {"occupied_cells": [int(b.sum()) for b in bits],
+            "mean_density": [float(g[g >= 0].mean()) if (g >= 0).any() else 0.0 for g in grid],
+            "seen_cells": [int((g >= 0).sum()) for g in grid],
+            "grid_mean_density": float(gs.mean_density), "refreshes": int(gs.iter_density)}
+
+
+def frame_baselines(ds) -> dict:
+    """PSNR against a split's images of two frames that need no field: the fixture's mean
+    colour over its training views (a trivial field's best constant) and black."""
+    import numpy as np
+
+    from palettenerf_torch.data.provider import NeRFDataset
+    from palettenerf_torch.train.metrics import psnr
+
+    mean = NeRFDataset(ds.opt, type="train").images[..., :3].reshape(-1, 3).mean(0)
+    imgs = ds.images[..., :3]
+    return {"mean_colour": [float(v) for v in mean],
+            "mean_colour_psnr": float(np.mean([psnr(np.broadcast_to(mean, i.shape), i)
+                                               for i in imgs])),
+            "black_psnr": float(np.mean([psnr(np.zeros_like(i), i) for i in imgs]))}
+
+
+def split_psnr(trainer, cls, split) -> dict:
+    """The CLI's meter on a split (the EMA weights), and the split's baseline frames."""
+    ds = cls(trainer.opt, type=split)
+    return dict(psnr=trainer.evaluate_one_epoch(ds, save_images=False), views=len(ds),
+                **frame_baselines(ds))
+
+
+def eval_seconds(torch, trainer, cls, frames: int = 3) -> float:
+    """Seconds per exact eval frame of val view 0 (``eval_step_full``), after one warm-up
+    frame, on the card's clock."""
+    data = next(iter(cls(trainer.opt, type="val").iter_epoch()))
+    trainer.eval_step_full(data)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(frames):
+        trainer.eval_step_full(data)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / frames
+
+
+def frame_depths(trainer, cls, split, view: int = 0) -> dict:
+    """Where a view's exact frame puts its opacity: quantiles of the composited distance
+    from the camera (``depth_origin``) over the pixels the field makes opaque (weights sum
+    > 0.5), and the share of them within 0.3 of the camera (the fixture's toys and
+    backdrop lie 0.6-1.5 from its cameras; scripts/make_ff_fixture.py)."""
+    import numpy as np
+
+    ds = cls(trainer.opt, type=split)
+    out = trainer.eval_step_full(ds.collate(view))
+    d = out["depth_origin"][out["weights_sum"] > 0.5]
+    q = np.quantile(d, [0.1, 0.5, 0.9]).tolist() if d.size else [None] * 3
+    return {"split": split, "view": view, "opaque_share": float(d.size / out["depth_origin"].size),
+            "depth_q10_q50_q90": q, "within_0.3": float((d < 0.3).mean()) if d.size else None}
+
+
+def depth_llff(torch, dev):
+    """``scripts/run_llff.sh`` with ``configs_llff/fern.sh`` on the forward-facing fixture,
+    the flags verbatim: stage 1 at 10,000 steps with its test tail and 256^3 mesh (each
+    cascade's cells and density at every eval, B1 on the last step's stream), the per-ray
+    extraction without ``--offset`` as the recipe runs it, then 10,000 palette steps with
+    the test tail. Val and test PSNR of both stages beside the fixture's mean-colour frame
+    and the black frame, the training views' PSNR and where stage 1 puts its opacity, eval
+    seconds per 504x378 frame. No quality floor: the recipe's field does not clear the
+    mean-colour frame on this fixture (it hides each training view in a layer just before
+    its camera; ROADMAP C22). The floors catch a broken path: every PSNR above the black
+    frame's (a NaN or black frame fails)."""
+    from palettenerf_torch.data.palette_provider import PaletteDataset
+    from palettenerf_torch.data.provider import NeRFDataset
+
+    _clean(LLFF_WS)
+    trainer, stage1 = depth_stage1(torch, dev, llff_nerf_args(FF_DATA, LLFF_WS, LLFF_ITERS),
+                                   "llff stage 1", extra=cascade_stats)
+    stage1["grid"] = cascade_stats(trainer)
+    stage1["val"] = split_psnr(trainer, NeRFDataset, "val")
+    stage1["test"] = split_psnr(trainer, NeRFDataset, "test")
+    # the training views themselves (full frames), and where the field puts its opacity
+    stage1["train"] = split_psnr(trainer, NeRFDataset, "traintest")
+    stage1["depths"] = [frame_depths(trainer, NeRFDataset, split) for split in ("val", "traintest")]
+    stage1["eval_s_per_frame"] = eval_seconds(torch, trainer, NeRFDataset)
+    log("llff stage 1: " + json.dumps({k: stage1[k] for k in (
+        "grid", "val", "test", "train", "depths", "eval_s_per_frame")}, default=float))
+    del trainer
+    nerf_model = f"./results/{LLFF_WS}"
+    extract = depth_extract(torch, dev, llff_extract_args(FF_DATA, nerf_model), "llff")
+    trainer, palette = depth_palette(torch, dev, llff_palette_args(FF_DATA, nerf_model,
+                                                                    LLFF_ITERS), "llff")
+    palette["val"] = split_psnr(trainer, PaletteDataset, "val")
+    palette["test"] = split_psnr(trainer, PaletteDataset, "test")
+    palette["eval_s_per_frame"] = eval_seconds(torch, trainer, PaletteDataset)
+    log("llff palette: " + json.dumps({k: palette[k] for k in (
+        "val", "test", "eval_s_per_frame")}, default=float))
+    del trainer
+    for stage, res in (("stage 1", stage1), ("palette", palette)):
+        for split in ("val", "test"):
+            r = res[split]
+            _floor(r["psnr"], r["black_psnr"], f"llff {stage} {split} PSNR (the black frame)")
+    log(f"llff: stage 1 val {stage1['val']['psnr']:.3f} / test {stage1['test']['psnr']:.3f} dB, "
+        f"palette val {palette['val']['psnr']:.3f} / test {palette['test']['psnr']:.3f} dB; the "
+        f"mean-colour frame {stage1['val']['mean_colour_psnr']:.3f} / "
+        f"{stage1['test']['mean_colour_psnr']:.3f} dB; P = {extract['palette_size']} from "
+        f"{extract['foreground_samples']} foreground samples")
+    return {"stage1": stage1, "extract": extract, "palette": palette}
+
+
+DEPTH_MODES = {"chain": depth_chain, "mip360": depth_mip360, "llff": depth_llff,
                "mip360-explore": depth_mip360_explore, "stage1": depth_stage1_mode,
                "bg": depth_bg, "deploy-ab": depth_deploy_ab,
                "chain-bf16-matmul": depth_chain_bf16_matmul,

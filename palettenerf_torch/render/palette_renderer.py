@@ -39,7 +39,7 @@ from ..ops.hashgrid_fast import EncodeRand
 from ..ops.rays import near_far_from_aabb
 from ..utils.color import hsv_to_rgb, rgb_to_hsv
 from .nerf_renderer import (RenderSettings, _aabb, _compact_budget, _march, _resolve_bg,
-                            compact_overflow, forward_compact)
+                            compact_overflow, forward_compact, padded_overflow)
 
 
 class RegionEdit(NamedTuple):
@@ -327,10 +327,14 @@ def render_palette_eval(
     offsets_weight: float = 1.0,
     view_dep_weight: float = 1.0,
     gui_mode: bool = False,
+    pad_to: Optional[int] = None,
 ):
     """Eval / editing render (palette/renderer.py:430-552): one pass over the [N, S]
     sample slots, no alive-ray loop. Returns the reference's eval dict including the
-    per-basis maps (not with ``gui_mode``).
+    per-basis maps (not with ``gui_mode``). With ``pad_to`` > N the batch counts as
+    ``pad_to`` rays, the rest copies of the last one, as JAX pads a frame's last chunk:
+    the compact budget is the padded batch's, and the dropped samples counted include
+    the copies' (``nerf_renderer.padded_overflow``).
 
     The field is evaluated only in the slots that hold a sample: those are gathered (one
     host read of their count), or with ``compact_frac`` packed into the static compact
@@ -373,11 +377,10 @@ def render_palette_eval(
 
     overflow = None
     if settings.compact_frac > 0:
-        budget = _compact_budget(settings, x_all.shape[0])
-        valid = m.mask.reshape(-1)
-        overflow = compact_overflow(valid, budget)
-        outs = [o.reshape(n, S, -1)
-                for o in forward_compact(sample_fields, valid, budget, x_all, d_all)]
+        budget = _compact_budget(settings, max(n, pad_to or n) * S)
+        overflow = padded_overflow(m.mask, budget, max(n, pad_to or n))
+        outs = [o.reshape(n, S, -1) for o in forward_compact(
+            sample_fields, m.mask.reshape(-1), budget, x_all, d_all)]
     else:
         held = m.mask.reshape(-1).nonzero(as_tuple=True)[0]
 

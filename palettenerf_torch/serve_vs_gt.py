@@ -11,10 +11,12 @@ Counterpart of the JAX package's ``scripts/serve_vs_gt.py``, with its settings:
    volume (``sigma_thresh=1e-3``);
 2. ``render_sweep`` (``u_res=448``, ``min_near=0.05``) at every test pose, against the
    test image composited on white;
-3. the exact path (``render_palette_eval`` with ``gui_mode=True``, in 16,384-ray chunks;
-   ``max_steps 512``, ``num_samples 192``, ``t_thresh 1e-2``, ``march_groups 48``,
-   ``compact_frac 0.375``, one cascade) on the first two views: against the image and
-   against the sweep frame.
+3. the exact path (``render_palette_eval`` with ``gui_mode=True``, in 16,384-ray chunks,
+   the last one counted as padded with copies of its last ray as the script pads it, so
+   that its compact budget is the script's; ``max_steps 512``, ``num_samples 192``,
+   ``t_thresh 1e-2``, ``march_groups 48``, ``compact_frac 0.375``, one cascade) on the
+   first two views: against the image and against the sweep frame; ``exact_dropped``
+   counts the samples the budget dropped over the padded chunks.
 
 The checkpoint is the port's own (a ``main_palette`` workspace) or a JAX-package pickle
 (``train/checkpoint.py:load_palette_checkpoint``). Prints the per-view and mean PSNRs and
@@ -119,7 +121,7 @@ def serve_vs_gt(palette_ws: str, data: str, device="cuda", resolution: int = 256
             out = render_palette_eval(params, spec, bitfield,
                                       torch.as_tensor(ro[s:s + chunk]).to(dev),
                                       torch.as_tensor(rd[s:s + chunk]).to(dev), settings,
-                                      bg_color=white, gui_mode=True)
+                                      bg_color=white, gui_mode=True, pad_to=chunk)
             outs.append(out["image"])
             dropped = dropped + out["compact_overflow"].sum()
         res.exact_dropped.append(int(dropped))

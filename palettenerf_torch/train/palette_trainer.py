@@ -303,11 +303,12 @@ class PaletteTrainer(Trainer):
 
     # ------------------------------------------------------------------ eval / test
 
-    def _render_chunk(self, params, bitfield, rays_o, rays_d, bg):
+    def _render_chunk(self, params, bitfield, rays_o, rays_d, bg, pad_to=None):
         return render_palette_eval(
             params, self.palette_spec, bitfield, rays_o, rays_d,
             self.eval_settings, bg, edit=self.edit, stylizer=self.stylizer,
-            offsets_weight=self.offsets_weight, view_dep_weight=self.view_dep_weight)
+            offsets_weight=self.offsets_weight, view_dep_weight=self.view_dep_weight,
+            pad_to=pad_to)
 
     def evaluate_one_epoch(self, valid_ds, save_images: bool = True) -> float:
         for m in self.metrics:

@@ -559,10 +559,14 @@ class Trainer:
         return (self.grid_state.bitfield, self._fine_bitfield)
 
     def render_image(self, rays_o, rays_d, bg_color=None, chunk: int = 16384):
-        """Full-frame eval render in ray chunks -> dict of numpy arrays. With
-        ``--eval_compact_frac`` the samples the budget dropped are summed over the frame
-        on the device and read once, after every chunk; a frame that dropped any is
-        logged (JAX :518-524), and the count is kept in ``last_compact_overflow``."""
+        """Full-frame eval render in ray chunks -> dict of numpy arrays. Every chunk counts
+        as ``chunk`` rays: JAX pads the short last one with copies of its last ray (:496-527),
+        and the eval rounds and compact budgets are the padded chunk's; the port counts the
+        copies without rendering them (``render_nerf_eval``'s ``pad_to``). With
+        ``--eval_compact_frac`` the samples the budget dropped (the copies' included, as
+        JAX counts them) are summed over the frame on the device and read once, after
+        every chunk; a frame that dropped any is logged (JAX :518-524), and the count is
+        kept in ``last_compact_overflow``."""
         rays_o = torch.as_tensor(rays_o, dtype=torch.float32)
         rays_d = torch.as_tensor(rays_d, dtype=torch.float32)
         bg = None if bg_color is None else torch.as_tensor(
@@ -572,7 +576,8 @@ class Trainer:
 
         def render(start):
             return self._render_chunk(params, bitfield, rays_o[start:start + chunk].to(self.device),
-                                      rays_d[start:start + chunk].to(self.device), bg)
+                                      rays_d[start:start + chunk].to(self.device), bg,
+                                      pad_to=chunk)
 
         starts = range(0, rays_o.shape[0], chunk)
         if self.dp is not None:  # whole chunks, chunk k on rank k mod n_devices
@@ -610,9 +615,9 @@ class Trainer:
             full[k] = self.dp.all_reduce_(acc)
         return full
 
-    def _render_chunk(self, params, bitfield, rays_o, rays_d, bg):
+    def _render_chunk(self, params, bitfield, rays_o, rays_d, bg, pad_to=None):
         return render_nerf_eval(params, self.spec, bitfield, rays_o, rays_d,
-                                self.eval_settings, bg)
+                                self.eval_settings, bg, pad_to)
 
     def eval_step_full(self, data, bg_color=None):
         out = self.render_image(data["rays_o"], data["rays_d"], bg_color)

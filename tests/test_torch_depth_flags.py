@@ -1,10 +1,11 @@
 """The argument lists of ``chip_smoke.py --depth-only`` against the shell recipes they
-run: ``scripts/run_blender.sh`` with ``scripts/configs_proc/proc_toys.sh`` and
-``scripts/run_mip360.sh`` with ``scripts/configs_mip360/bonsai.sh``, parsed as text. Each
-mode's list is the recipe's command line with only ``--iters`` (the config's ``iters``),
-``EXTRA_FLAGS``, the workspace (the config's ``name``) and, for the mip360 recipe on the
-committed fixture, the scene (``data_dir``) set; the chain's extraction adds the README's
-``--extract_downscale 2`` (README.md:443).
+run: ``scripts/run_blender.sh`` with ``scripts/configs_proc/proc_toys.sh``,
+``scripts/run_mip360.sh`` with ``scripts/configs_mip360/bonsai.sh`` and
+``scripts/run_llff.sh`` with ``scripts/configs_llff/fern.sh``, parsed as text. Each mode's
+list is the recipe's command line with only ``--iters`` (the config's ``iters``),
+``EXTRA_FLAGS``, the workspace (the config's ``name``) and, for the mip360 and LLFF recipes
+on the committed fixtures, the scene (``data_dir``) set; the chain's extraction adds the
+README's ``--extract_downscale 2`` (README.md:443).
 """
 
 import os
@@ -52,7 +53,9 @@ def _recipe(script: str, model: str, env: dict) -> list:
 
 BLENDER = ("scripts/run_blender.sh", "scripts/configs_proc/proc_toys.sh")
 MIP360 = ("scripts/run_mip360.sh", "scripts/configs_mip360/bonsai.sh")
+FERN = ("scripts/run_llff.sh", "scripts/configs_llff/fern.sh")
 LLFF = dict(data_dir=cs.LLFF_DATA)
+FF = dict(data_dir=cs.FF_DATA, name=cs.LLFF_WS)
 CASES = {
     # mode: (recipe, -m, what the config sets, EXTRA_FLAGS, the mode's list, additions)
     "chain-nerf": (BLENDER, "nerf", dict(name=cs.CHAIN_WS), "--fast_grad",
@@ -72,6 +75,13 @@ CASES = {
                        dict(LLFF, name=cs.MIP360_WS, iters=str(cs.MIP360_ITERS)), "",
                        cs.mip360_palette_args(cs.LLFF_DATA, f"./results/{cs.MIP360_WS}",
                                               cs.MIP360_ITERS), []),
+    "llff-nerf": (FERN, "nerf", FF, "", cs.llff_nerf_args(cs.FF_DATA, cs.LLFF_WS, cs.LLFF_ITERS),
+                  []),
+    "llff-extract": (FERN, "extract", FF, "",
+                     cs.llff_extract_args(cs.FF_DATA, f"./results/{cs.LLFF_WS}"), []),
+    "llff-palette": (FERN, "palette", FF, "",
+                     cs.llff_palette_args(cs.FF_DATA, f"./results/{cs.LLFF_WS}", cs.LLFF_ITERS),
+                     []),
     "real-scene-nerf": (MIP360, "nerf", dict(data_dir=cs.LLFF_SCENE, name="chip_smoke_real",
                                              iters="300"), "", cs.REAL_NERF_ARGS, []),
     "real-scene-palette": (MIP360, "palette",
@@ -102,6 +112,20 @@ def test_proc_toys_recipe_depth():
     assert "--dt_gamma" not in cs.MAIN_ARGS
 
 
+def test_llff_recipe_depth_and_offsets():
+    """The llff mode runs fern's own iters (10,000); its stage 1 and palette stage pass
+    fern's ``--offset 0 0 1.5``, and its extraction none, as ``run_llff.sh``'s extract
+    block does."""
+    assert _config(FERN[1])["iters"] == str(cs.LLFF_ITERS) == "10000"
+    nerf = cs.llff_nerf_args(cs.FF_DATA, cs.LLFF_WS, cs.LLFF_ITERS)
+    palette = cs.llff_palette_args(cs.FF_DATA, f"./results/{cs.LLFF_WS}", cs.LLFF_ITERS)
+    for args in (nerf, palette):
+        i = args.index("--offset")
+        assert args[i + 1:i + 4] == ["0", "0", "1.5"]
+    assert "--offset" not in cs.llff_extract_args(cs.FF_DATA, f"./results/{cs.LLFF_WS}")
+    assert palette[palette.index("--datatype") + 1] == "llff"
+
+
 def test_bg_mode_is_the_default_runs_bg_patch_flags():
     """The bg mode is BG_PATCH_ARGS with --iters 8000 and its own workspace."""
     want = [a for a in cs.BG_PATCH_ARGS]
@@ -111,7 +135,7 @@ def test_bg_mode_is_the_default_runs_bg_patch_flags():
 
 
 def test_depth_modes_parse():
-    for mode in ("chain", "mip360", "mip360-explore", "stage1", "bg"):
+    for mode in ("chain", "mip360", "mip360-explore", "stage1", "bg", "llff"):
         assert cs.parse_mode(["--depth-only", mode]) == ("depth", mode)
     assert cs.parse_mode(["--depth-only", "bogus"]) is None
     assert cs.parse_mode(["--real-scene-only", "--trace-memory"]) == ("real", True)

@@ -3,7 +3,9 @@ against the JAX pipeline of ``scripts/serve_vs_gt.py``: ``bake_palette`` ->
 ``mask_with_bitfield`` -> ``build_sweep_volume`` -> ``render_sweep`` at every test pose,
 and ``render_palette_eval(gui_mode=True)`` with the script's ``RenderSettings`` on the
 first two, on a small palette checkpoint in the JAX package's layout (R 32, the test views
-of ``tests/synthetic.py``'s sphere scene).
+of ``tests/synthetic.py``'s sphere scene). The exact path runs in chunks of one whole
+32x32 view, so that neither side pads a chunk (``tests/test_torch_eval_chunk.py`` holds
+the padded last chunk of the script's 16,384-ray chunks).
 
 Tolerances: the sweep frames by PSNR >= 45 dB against JAX's (bf16 shading on both sides
 rounds at other places: the bound of ``tests/test_torch_serve.py``); the exact frames to
@@ -69,8 +71,8 @@ def case(tmp_path_factory):
         tckpt.palette_params_from_jax(params), grid_state={k: torch.from_numpy(v)
                                                            for k, v in gs.items()})
     got = svg.serve_vs_gt(ws, scene, device="cpu", resolution=R, grid_levels=4,
-                          log2_hashmap_size=13, verbose=False)
-    return scene, spec, params, gs, got
+                          log2_hashmap_size=13, verbose=False, chunk=HW * HW)
+    return scene, spec, params, gs, got, ws
 
 
 def _jax_reference(scene, spec, params, gs):
@@ -106,7 +108,7 @@ def _jax_reference(scene, spec, params, gs):
 
 
 def test_serve_vs_gt_matches_jax_pipeline(case):
-    scene, spec, params, gs, got = case
+    scene, spec, params, gs, got, _ = case
     sweeps, exacts, gts = _jax_reference(scene, spec, params, gs)
     assert len(got.sweep_frames) == len(sweeps) == N_TEST
     assert len(got.exact_frames) == len(exacts) == 2
@@ -129,8 +131,9 @@ def test_serve_vs_gt_matches_jax_pipeline(case):
 
 def test_serve_vs_gt_reads_the_port_checkpoint(case, tmp_path):
     """The CLI on the same weights as the port's own checkpoint (``torch.save``) gives
-    the same frames as the function on the JAX-layout pickle."""
-    scene, _, params, gs, got = case
+    the same frames as the function on the JAX-layout pickle, both in the script's
+    16,384-ray chunks."""
+    scene, _, params, gs, got, pickle_ws = case
     ws = str(tmp_path / "ws")
     tckpt.save_checkpoint(os.path.join(ws, "checkpoints"), "palette", 1,
                           {"params": tckpt.palette_params_from_jax(params),
@@ -140,4 +143,6 @@ def test_serve_vs_gt_reads_the_port_checkpoint(case, tmp_path):
     assert len(again.exact_frames) == 1
     for a, b in zip(again.sweep_frames, got.sweep_frames):
         np.testing.assert_array_equal(a, b)
-    np.testing.assert_array_equal(again.exact_frames[0], got.exact_frames[0])
+    ref = svg.serve_vs_gt(pickle_ws, scene, device="cpu", resolution=R, n_exact=1,
+                          grid_levels=4, log2_hashmap_size=13, verbose=False)
+    np.testing.assert_array_equal(again.exact_frames[0], ref.exact_frames[0])

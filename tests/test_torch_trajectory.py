@@ -73,6 +73,7 @@ from torch_support import CPU_THREADS
 torch.set_num_threads(CPU_THREADS)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "data_proc", "proc_toys_llff")
+FF_FIXTURE = os.path.join(REPO, "data_proc", "proc_toys_ff")
 
 LR = 1e-2
 EARLY = 4
@@ -112,6 +113,11 @@ MIP360 = dict(O=True, fp16=True, bound=2.0, scale=0.16, offset=(0.0, 0.0, 0.0), 
               grid_update_warmup=4, lr=LR)
 MIP360_SPEC = dict(bound=2.0, fp16=True, log2_hashmap_size=12, grid_levels=4)
 MIP360_EPOCHS = 3
+# the LLFF recipe (scripts/run_llff.sh with configs_llff/fern.sh) on five views of the
+# forward-facing fixture: bound 2, two cascades, --offset 0 0 1.5 (the cameras inside the
+# box), --min_near 0.02, --lambda_sparse 0.05, --no_bg; runs of 2 steps as mip360's
+LLFF = dict(MIP360, scale=0.25, offset=(0.0, 0.0, 1.5), lambda_sparse=0.05, min_near=0.02,
+            filter_close_point=False)
 # the palette stage at -O --fast_grad, warm-started from the O_fast_grad case's JAX
 # stage-1 checkpoint: the colours frozen in epoch 1, unfrozen from epoch 2, the smooth loss
 # from epoch 3; lambda_weight decays to 0 by epoch 4
@@ -341,13 +347,14 @@ def _stage1_run(tmp, cfg, spec_kw, epochs, monkeypatch):
     return jtr, ttr, jrec, trec
 
 
-def _mip360_views(tmp_path_factory):
-    """Five training views of the LLFF fixture (frames 0, 5, ..., 20 of its train split)."""
-    root = tmp_path_factory.mktemp("trajectory_llff")
-    with open(os.path.join(FIXTURE, "transforms_train.json")) as f:
+def _five_views(tmp_path_factory, fixture=FIXTURE, step=5):
+    """Five training views of a JPEG fixture (frames 0, step, ..., 4 step of its train
+    split) as a scene of their own."""
+    root = tmp_path_factory.mktemp("trajectory_" + os.path.basename(fixture))
+    with open(os.path.join(fixture, "transforms_train.json")) as f:
         meta = json.load(f)
-    meta["frames"] = [dict(fr, file_path=os.path.join(FIXTURE, fr["file_path"]))
-                      for fr in meta["frames"][::5][:5]]
+    meta["frames"] = [dict(fr, file_path=os.path.join(fixture, fr["file_path"]))
+                      for fr in meta["frames"][::step][:5]]
     for split in ("train", "val", "test"):
         with open(root / f"transforms_{split}.json", "w") as f:
             json.dump(meta, f)
@@ -376,7 +383,10 @@ class Runs:
 
     def _stage1(self, case):
         if case == "mip360":
-            cfg = dict(MIP360, path=_mip360_views(self.tmp))
+            cfg = dict(MIP360, path=_five_views(self.tmp))
+            spec_kw, epochs = MIP360_SPEC, MIP360_EPOCHS
+        elif case == "llff":
+            cfg = dict(LLFF, path=_five_views(self.tmp, FF_FIXTURE, 4))
             spec_kw, epochs = MIP360_SPEC, MIP360_EPOCHS
         else:
             cfg_kw, spec_extra = STAGE1[case]
@@ -426,7 +436,7 @@ def runs(tmp_path_factory):
     return Runs(tmp_path_factory)
 
 
-CASES = ["O", "O_fast_grad", "O2", "palette", "mip360"]
+CASES = ["O", "O_fast_grad", "O2", "palette", "mip360", "llff"]
 
 
 # --------------------------------------------------------------------------- exact checks
@@ -564,11 +574,19 @@ def test_host_epoch_refresh_schedule_matches(runs, tmp_path_factory, monkeypatch
     assert [s for s, _ in trec["refresh"]] == list(range(0, ttr.global_step, interval))
 
 
+def _grid_numbers(grid_state, bitfield) -> tuple:
+    """(occupied cells of the bitfield, mean density) of a trainer's grid."""
+    bits = np.unpackbits(np.asarray(bitfield), bitorder="little")
+    return int(bits.sum()), float(grid_state.mean_density)
+
+
 def main(argv=None):
     """The ``-O --fast_grad`` stage-1 case for more epochs than the tests take, on the CPU:
-    ``python tests/test_torch_trajectory.py --epochs 30`` (300 steps, ~1 min) prints the
-    step losses' drift by epoch, each tensor's drift, the occupied cells and mean density,
-    and both packages' val PSNR (the EMA weights, the sphere's val view)."""
+    ``PYTHONPATH=. python tests/test_torch_trajectory.py --epochs 30`` (300 steps, ~1 min)
+    prints the step losses' drift by epoch, each tensor's drift, both packages' occupied cells and mean
+    density every ``--every`` epochs (10: every 100 steps), and both packages' val PSNR
+    (the EMA weights, the sphere's val view), and the port's render of JAX's final state
+    against JAX's frame."""
     import argparse
     import pathlib
     import sys
@@ -576,6 +594,7 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--epochs", type=int, default=30)
+    ap.add_argument("--every", type=int, default=10)
     args = ap.parse_args(argv)
     jax.config.update("jax_platforms", "cpu")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -587,46 +606,70 @@ def main(argv=None):
 
     cfg = dict(SPHERE, path=Runs(Factory()).sphere(), fast_grad=True,
                iters=10 * args.epochs)
+    spec_kw = dict(SPEC, fast_grad=True)
+    # _stage1_run's two runs, each in stretches of --every epochs to read the grids
+    jspec, tspec = jnerf.NeRFSpec.build(**spec_kw), tnerf.NeRFSpec.build(**spec_kw)
+    jds, tds = _datasets(cfg)
+    jparams = jnerf.init_nerf(jax.random.PRNGKey(1), jspec)
+    tparams = tckpt.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
+    jtr = JTrainer("ngp", JConfig(**cfg), jspec, params=jparams, workspace=str(root / "jax"),
+                   use_checkpoint="scratch", mute=True)
+    jrec = record_jax(jtr)
+    np.random.seed(0)
+    marks = list(range(args.every, args.epochs, args.every)) + [args.epochs]
+    t0, grids = time.perf_counter(), {}
+    for e in marks:
+        jtr.train(jds, None, e)
+        grids[e] = [_grid_numbers(jtr.grid_state, jtr.grid_state.bitfield)]
+    t_jax = time.perf_counter() - t0
     with pytest.MonkeyPatch.context() as mp:
-        jtr, ttr, jrec, trec = _stage1_run(root, cfg, dict(SPEC, fast_grad=True),
-                                           args.epochs, mp)
+        ttr = ttrainer.Trainer("ngp", TConfig(**cfg), tspec, params=tparams,
+                               workspace=str(root / "torch"), use_checkpoint="scratch",
+                               mute=True, device="cpu")
+        trec = record_port(ttr, mp)
+        draws = replay_for(jrec, cfg["num_rays"], tds.H * tds.W, jspec,
+                           cfg["train_samples_per_ray"], len(tds.poses))
+        t0 = time.perf_counter()
+        for e in marks:
+            ttr.train(tds, None, e, draws=draws)
+            grids[e].append(_grid_numbers(ttr.grid_state, ttr.grid_state.bitfield.numpy()))
+    t_port = time.perf_counter() - t0
+    print(f"{10 * args.epochs} steps: JAX {t_jax:.0f} s, port {t_port:.0f} s")
     print("refresh schedule equal:", trec["refresh"] == jrec["refresh"], "departures:",
-          trec["departures"])
+          draws.departures)
+    for e in marks:
+        (cj, dj), (ct, dt) = grids[e]
+        print(f"step {10 * e}: occupied cells JAX {cj} port {ct}; mean density JAX {dj:.6f} "
+              f"port {dt:.6f} (rel {abs(dt - dj) / max(abs(dj), 1e-12):.2e})")
     lj, lt = np.asarray(jrec["losses"]), np.asarray(trec["losses"])
-    for e in range(args.epochs):
-        s = slice(10 * e, 10 * e + 10)
-        print(f"epoch {e + 1}: loss JAX {lj[s].mean():.6f} port {lt[s].mean():.6f}, largest "
-              f"step rel diff {(np.abs(lt[s] - lj[s]) / lj[s]).max():.2e}")
+    for e in range(0, args.epochs, args.every):
+        s = slice(10 * e, 10 * (e + args.every))
+        rel = (np.abs(lt[s] - lj[s]) / lj[s]).max()
+        print(f"epochs {e + 1}-{e + args.every}: loss JAX {lj[s].mean():.6f} port "
+              f"{lt[s].mean():.6f}, largest step rel diff {rel:.2e}")
     for name, p, p_ref in _param_pairs("O", ttr.params, jtr.params):
         d = (p.detach().float() - p_ref.float()).abs().flatten()
         print(f"{name}: |diff| median {float(d.median()):.2e} mean {float(d.mean()):.2e} "
               f"max {float(d.max()):.2e}")
     bits = [np.unpackbits(np.asarray(b), bitorder="little").astype(bool)
             for b in (ttr.grid_state.bitfield.numpy(), jtr.grid_state.bitfield)]
-    print(f"occupied cells port {bits[0].sum()} JAX {bits[1].sum()}, differing "
-          f"{(bits[0] != bits[1]).sum()}; mean density port "
-          f"{float(ttr.grid_state.mean_density):.6f} JAX {float(jtr.grid_state.mean_density):.6f}")
+    print(f"bitfields differ in {(bits[0] != bits[1]).sum()} cells")
     print("val PSNR JAX", jtr.evaluate_one_epoch(JDataset(JConfig(**cfg), type="val"),
                                                  save_images=False),
           "port", ttr.evaluate_one_epoch(TDataset(TConfig(**cfg), type="val"),
                                          save_images=False))
-    # the eval frame of JAX's own state through the port's render_image, as it is (one
-    # short chunk) and padded to JAX's 16,384-ray chunk with copies of the last ray
-    # (ROADMAP C21), against JAX's frame
+    # the eval frame of JAX's own state through the port's render_image (one short chunk,
+    # counted as JAX's padded 16,384-ray chunk; ROADMAP C21), against JAX's frame
     data = next(iter(TDataset(TConfig(**cfg), type="val").iter_epoch()))
     ref = jtr.eval_step_full(next(iter(JDataset(JConfig(**cfg), type="val").iter_epoch())))
     ttr.ema_params = tckpt.params_from_jax(jax.tree_util.tree_map(np.asarray, jtr.ema_params))
     ttr.grid_state = ttr.grid_state._replace(bitfield=T(jtr.grid_state.bitfield))
-    ro, rd = data["rays_o"], data["rays_d"]
-    n, pad = ro.shape[0], 16384 - ro.shape[0]
-    for name, rays in (("as it is", (ro, rd)), ("padded", tuple(
-            np.concatenate([a, np.repeat(a[-1:], pad, 0)]) for a in (ro, rd)))):
-        t0 = time.perf_counter()
-        img = ttr.render_image(*rays)["image"][:n].reshape(ref["image"].shape)
-        secs = time.perf_counter() - t0
-        mse = float(((img - ref["image"]) ** 2).mean())
-        print(f"port eval of JAX's state, {name}: {10 * np.log10(1 / max(mse, 1e-30)):.2f} dB "
-              f"from JAX's frame, {secs:.2f} s")
+    t0 = time.perf_counter()
+    img = ttr.render_image(data["rays_o"], data["rays_d"])["image"].reshape(ref["image"].shape)
+    secs = time.perf_counter() - t0
+    mse = float(((img - ref["image"]) ** 2).mean())
+    print(f"port eval of JAX's state: {10 * np.log10(1 / max(mse, 1e-30)):.2f} dB from JAX's "
+          f"frame, {secs:.2f} s")
 
 
 if __name__ == "__main__":
