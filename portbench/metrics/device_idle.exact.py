@@ -1,0 +1,7 @@
+"""Share of the traced window of exact frames in which no device operation ran, in %."""
+
+from portbench.trace import idle_percent
+
+
+def read(r):
+    return None if r.trace is None else idle_percent(r.trace)
