@@ -73,8 +73,8 @@ class PaletteDataset(NeRFDataset):
             feats.append(feat.astype(np.float32))
         return np.stack(feats)
 
-    def collate(self, index: int) -> dict:
-        out = super().collate(index)
+    def _collate(self, index: int) -> dict:
+        out = super()._collate(index)
         if self.feat_images is not None and "inds" in out:
             C = self.feat_images.shape[-1]
             out["feat_images"] = self.feat_images[index].reshape(-1, C)[out["inds"]]

@@ -29,6 +29,7 @@ import zlib
 
 import numpy as np
 
+from ..utils import profiling
 from .image import read_image
 from .rays import gen_rays, sample_ray_indices
 
@@ -304,6 +305,10 @@ class NeRFDataset:
 
     def collate(self, index: int) -> dict:
         """One training/eval batch for image ``index`` (provider.py:284-330)."""
+        with profiling.span("data.collate", unit=index):
+            return self._collate(index)
+
+    def _collate(self, index: int) -> dict:
         if self.rand_pose == 0 or index >= len(self.poses):
             # random orbit pose, low-res full frame for CLIP mode
             pose = rand_poses(self.rng, 1, radius=self.radius)[0]

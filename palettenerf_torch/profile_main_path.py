@@ -34,8 +34,9 @@ loss's share of a host-sampled step).
 Prints, for each window, the wall time, the summed device time of all kernels and its
 share of the wall time (busy share; one stream, so kernels do not overlap), the number
 of kernel launches, the operators with the most device time, and the device time per
-launch of the hand-written scatter kernel on that path; and writes each window's Chrome
-trace under ``results/profile_trace/`` (``utils.profiling.trace``).
+launch of the hand-written scatter kernel on that path, and the program's spans by host
+self time with its counters (``utils.profiling``); and writes each window's Chrome trace
+and its spans under ``results/profile_trace/`` (``utils.profiling.trace``).
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ from .data.provider import NeRFDataset
 from .main_nerf import build_parser
 from .models.nerf import NeRFSpec
 from .train.trainer import Trainer
-from .utils.profiling import trace
+from .utils.profiling import snapshot, trace
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARGS = [os.path.join(_ROOT, "data_proc", "proc_toys"), "-O", "--bound", "1", "--scale",
@@ -79,6 +80,13 @@ def _profile(what: str, fn, top: int = 15):
         total = sum(e.device_time_total for e in own)
         print(f"   scatter_add kernel: {len(own)} launches, {total / len(own) / 1e3:.3f} ms of "
               f"device time per launch ({own[0].name[:60]})")
+    # the program's own spans (utils.profiling), by host self time
+    rec = snapshot()
+    for name, v in sorted(rec["spans"].items(), key=lambda kv: -kv[1]["self_ns"]):
+        print(f"   span {name:18s} x{v['count']:<6d} self {v['self_ns'] / 1e6:10.2f} ms, "
+              f"total {v['total_ns'] / 1e6:10.2f} ms")
+    if rec["counters"]:
+        print("   counters " + ", ".join(f"{k} {v}" for k, v in sorted(rec["counters"].items())))
 
 
 # the flags passed on to the trainers, with their types

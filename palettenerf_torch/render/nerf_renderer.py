@@ -39,6 +39,7 @@ from ..ops.hashgrid_fast import EncodeRand
 from ..ops.march import build_super_bitfield, march_rays, super_bitfield_ok
 from ..ops.rays import near_far_from_aabb, sph_from_ray
 from ..ops.sampling import sample_pdf
+from ..utils import profiling
 
 
 @dataclass(frozen=True)
@@ -185,6 +186,7 @@ def render_nerf_train(
                                      settings.min_near)
     bg = _resolve_bg(params, spec, rays_o, rays_d, bg_color, settings)
     m = _march(rays_o, rays_d, nears, fars, bitfield, settings, settings.num_samples, noise)
+    profiling.count_device("train.valid_samples", m.mask)
     dirs = rays_d[:, None, :].expand_as(m.xyzs).reshape(-1, 3)
     x = m.xyzs.reshape(-1, 3)
     overflow = None
@@ -372,7 +374,11 @@ def render_nerf_eval_compact(
     budget is sized for, the padded batch, and the copies that sort ahead of a ray take
     its place in the round and their valid samples take budget slots ahead of its own
     (``_Copies``); the dropped samples counted include the copies'. The copies are not
-    rendered: the real rays' outputs are JAX's on the padded batch."""
+    rendered: the real rays' outputs are JAX's on the padded batch.
+
+    Under the profiler each round is the span ``eval.round``, counted in ``eval.rounds``,
+    and its real rays' valid samples in the device counter ``eval.valid_samples.r<k>``
+    (``utils.profiling``)."""
     rounds = settings.compaction_rounds
     if not rounds or rounds[0][0] != 1:
         raise ValueError(f"compaction round 0 must cover all rays, got {rounds}")
@@ -400,76 +406,80 @@ def render_nerf_eval_compact(
     copies = _Copies(n_pad - n, trans[-1].clone(), last_alpha) if n_pad > n else None
 
     offset = 0
-    for divisor, s_r in rounds:
-        cols = slice(offset, offset + s_r)
-        budget = _compact_budget(settings, n_pad // divisor * s_r) if compact else None
-        ahead = None
-        if divisor == 1:
-            sel = None
-            xyz, dts, t_cum, mask = m.xyzs[:, cols], m.dts[:, cols], m.t_cum[:, cols], m.mask[:, cols]
-            rd_r, t_in = rays_d, trans
-        else:
-            # the top n_r rays by remaining transmittance; among equal ones the lower
-            # index, as lax.top_k orders them (torch.topk leaves ties in no set order)
-            alive = torch.where(m.mask[:, offset], trans, torch.zeros_like(trans))
-            order = torch.sort(alive, descending=True, stable=True).indices
-            if copies is None:
-                sel = order[:n // divisor]
+    for k, (divisor, s_r) in enumerate(rounds):
+        profiling.count("eval.rounds", 1)
+        with profiling.span("eval.round"):
+            cols = slice(offset, offset + s_r)
+            budget = _compact_budget(settings, n_pad // divisor * s_r) if compact else None
+            ahead = None
+            if divisor == 1:
+                sel = None
+                xyz, dts = m.xyzs[:, cols], m.dts[:, cols]
+                t_cum, mask = m.t_cum[:, cols], m.mask[:, cols]
+                rd_r, t_in = rays_d, trans
             else:
-                sel, ahead_rows = copies.select(alive, order, m.mask[-1, offset],
-                                                n_pad // divisor)
-            xyz, dts = m.xyzs[sel, cols], m.dts[sel, cols]
-            t_cum, mask = m.t_cum[sel, cols], m.mask[sel, cols]
-            rd_r, t_in = rays_d[sel], trans[sel]
-        n_r = xyz.shape[0]
-        if copies is not None:
-            v = int(m.mask[-1, cols].sum())  # the last ray's valid samples in the round
-            if divisor > 1 and compact:
-                ahead = (ahead_rows * v)[:, None].expand(-1, s_r).reshape(-1)
-            # the last ray's row in the round, and whether the budget keeps all of it
-            row_valid = mask.sum(-1, dtype=torch.int32)
-            total_real = int(row_valid.sum())
+                # the top n_r rays by remaining transmittance; among equal ones the lower
+                # index, as lax.top_k orders them (torch.topk leaves ties in no set order)
+                alive = torch.where(m.mask[:, offset], trans, torch.zeros_like(trans))
+                order = torch.sort(alive, descending=True, stable=True).indices
+                if copies is None:
+                    sel = order[:n // divisor]
+                else:
+                    sel, ahead_rows = copies.select(alive, order, m.mask[-1, offset],
+                                                    n_pad // divisor)
+                xyz, dts = m.xyzs[sel, cols], m.dts[sel, cols]
+                t_cum, mask = m.t_cum[sel, cols], m.mask[sel, cols]
+                rd_r, t_in = rays_d[sel], trans[sel]
+            profiling.count_device(f"eval.valid_samples.r{k}", mask)
+            n_r = xyz.shape[0]
+            if copies is not None:
+                v = int(m.mask[-1, cols].sum())  # the last ray's valid samples in the round
+                if divisor > 1 and compact:
+                    ahead = (ahead_rows * v)[:, None].expand(-1, s_r).reshape(-1)
+                # the last ray's row in the round, and whether the budget keeps all of it
+                row_valid = mask.sum(-1, dtype=torch.int32)
+                total_real = int(row_valid.sum())
+                if sel is None:
+                    last_row = n - 1
+                else:
+                    hit = (sel == n - 1).nonzero()
+                    last_row = int(hit[0, 0]) if hit.numel() else None
+                last_whole = last_row is not None
+                if last_whole and budget is not None:
+                    start = int(row_valid[:last_row].sum()) + (
+                        0 if ahead is None else int(ahead[last_row * s_r]))
+                    last_whole = start + int(row_valid[last_row]) <= budget
+
+            dirs = rd_r[:, None, :].expand_as(xyz)
+            sig, rgb = _eval_forward(params, spec, xyz, dirs, mask, budget, ahead)
+            sig = sig.reshape(n_r, s_r).float() * settings.density_scale
+            rgb = rgb.reshape(n_r, s_r, 3).float()
+
+            sig = torch.where(mask, sig, torch.zeros_like(sig))
+            alpha = 1.0 - torch.exp(-sig * dts)
+            t_rel = torch.cumprod(1.0 - alpha, dim=-1)
+            t_enter = t_in[:, None] * torch.cat([torch.ones_like(t_rel[:, :1]), t_rel[:, :-1]], -1)
+            w = alpha * t_enter * (t_enter >= settings.t_thresh) * mask
+
+            d_img = torch.einsum("ns,nsc->nc", w, rgb)
+            d_ws = w.sum(-1)
+            d_depth = (w * t_cum).sum(-1)
+            t_out = t_in * t_rel[:, -1]
             if sel is None:
-                last_row = n - 1
+                image, ws, depth, trans = image + d_img, ws + d_ws, depth + d_depth, t_out
             else:
-                hit = (sel == n - 1).nonzero()
-                last_row = int(hit[0, 0]) if hit.numel() else None
-            last_whole = last_row is not None
-            if last_whole and budget is not None:
-                start = int(row_valid[:last_row].sum()) + (
-                    0 if ahead is None else int(ahead[last_row * s_r]))
-                last_whole = start + int(row_valid[last_row]) <= budget
-
-        dirs = rd_r[:, None, :].expand_as(xyz)
-        sig, rgb = _eval_forward(params, spec, xyz, dirs, mask, budget, ahead)
-        sig = sig.reshape(n_r, s_r).float() * settings.density_scale
-        rgb = rgb.reshape(n_r, s_r, 3).float()
-
-        sig = torch.where(mask, sig, torch.zeros_like(sig))
-        alpha = 1.0 - torch.exp(-sig * dts)
-        t_rel = torch.cumprod(1.0 - alpha, dim=-1)
-        t_enter = t_in[:, None] * torch.cat([torch.ones_like(t_rel[:, :1]), t_rel[:, :-1]], -1)
-        w = alpha * t_enter * (t_enter >= settings.t_thresh) * mask
-
-        d_img = torch.einsum("ns,nsc->nc", w, rgb)
-        d_ws = w.sum(-1)
-        d_depth = (w * t_cum).sum(-1)
-        t_out = t_in * t_rel[:, -1]
-        if sel is None:
-            image, ws, depth, trans = image + d_img, ws + d_ws, depth + d_depth, t_out
-        else:
-            image.index_add_(0, sel, d_img)
-            ws.index_add_(0, sel, d_ws)
-            depth.index_add_(0, sel, d_depth)
-            trans[sel] = t_out
-        if copies is not None:
-            n_copies = copies.advance(
-                v, budget, t_rel[last_row, -1] if last_whole else None, cols, m.mask[-1, cols],
-                alive if divisor > 1 else None, row_valid, sel, total_real)
-            if compact:
-                overflow = overflow + max(0, total_real + v * n_copies - budget)
-        elif compact:
-            overflow = overflow + compact_overflow(mask.reshape(-1), budget)
+                image.index_add_(0, sel, d_img)
+                ws.index_add_(0, sel, d_ws)
+                depth.index_add_(0, sel, d_depth)
+                trans[sel] = t_out
+            if copies is not None:
+                n_copies = copies.advance(
+                    v, budget, t_rel[last_row, -1] if last_whole else None, cols, m.mask[-1, cols],
+                    alive if divisor > 1 else None, row_valid, sel, total_real)
+                if compact:
+                    overflow = overflow + max(0, total_real + v * n_copies - budget)
+            elif compact:
+                overflow = overflow + compact_overflow(mask.reshape(-1), budget)
         offset += s_r
 
     image = image + (1.0 - ws)[:, None] * bg

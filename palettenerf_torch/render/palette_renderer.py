@@ -37,6 +37,7 @@ from ..models.palette import (PaletteSpec, palette_clip, palette_color, palette_
 from ..ops.composite import composite_channels, composite_weights
 from ..ops.hashgrid_fast import EncodeRand
 from ..ops.rays import near_far_from_aabb
+from ..utils import profiling
 from ..utils.color import hsv_to_rgb, rgb_to_hsv
 from .nerf_renderer import (RenderSettings, _aabb, _compact_budget, _march, _resolve_bg,
                             compact_overflow, forward_compact, padded_overflow)
@@ -221,6 +222,7 @@ def render_palette_train(
     nears, fars = near_far_from_aabb(rays_o, rays_d, _aabb(settings, dev), settings.min_near)
     bg = _resolve_bg(params, spec, rays_o, rays_d, bg_color, settings)
     m = _march(rays_o, rays_d, nears, fars, bitfield, settings, settings.num_samples, noise)
+    profiling.count_device("train.valid_samples", m.mask)
     S = settings.num_samples
     x = m.xyzs.reshape(-1, 3)
     d = rays_d[:, None, :].expand_as(m.xyzs).reshape(-1, 3)

@@ -49,6 +49,7 @@ import torch.nn.functional as F
 
 from ..ops.rays import near_far_from_aabb
 from ..ops.sh import sh_encode
+from ..utils import profiling
 from .baking import BakedVolume
 from .palette_renderer import RegionEdit, make_region_edit
 
@@ -283,7 +284,11 @@ def _sweep_composite(
     """Front-to-back sweep over slices; returns intermediate maps [U, U, 5] =
     (rgb, depth_abs, weights_sum) f32, rows = grid-y, cols = grid-x. Internally every
     plane is [Ucol, Urow] ([K, Ucol, P, Urow] for per-basis math), because the
-    channel-middle layout makes the second interpolation product emit [K, Ucol, C, Urow]."""
+    channel-middle layout makes the second interpolation product emit [K, Ucol, C, Urow].
+
+    Under the profiler the frame counts its blocks run and skipped, and of those run the
+    ones the edit skips (``edit_cull``) and edits in some slices only (``utils.profiling``
+    counters ``sweep.blocks_*``)."""
     Z, X, C, Y = vol.shape
     U, P = u_res, num_basis
     dev = vol.device
@@ -410,7 +415,9 @@ def _sweep_composite(
 
     T = torch.ones((U, U), dtype=torch.float32, device=dev)
     acc = [torch.zeros((U, U), dtype=torch.float32, device=dev) for _ in range(4)]
-    for a, b in _blocks(occ, bool(flip)):
+    blocks = _blocks(occ, bool(flip))
+    culled = partial = 0  # blocks the edit skips / edits in some slices only
+    for a, b in blocks:
         K = b - a
         lam, zk = lam_all[a:b], z_all[a:b]
         sx = (float(o1) + (gx[None] - float(o1)) * lam[:, None] + float(bound)) / two_b * (X - 1)
@@ -426,6 +433,8 @@ def _sweep_composite(
         if has_edit and edit_cull:
             nh = near_host[a:b]
             near = False if not nh.any() else (None if nh.all() else near_all[a:b])
+            culled += near is False
+            partial += near is not None and near is not False
         sigma, r, g, b_ = shade(feat, lam, zk, mask_uv, near)
         t_k = lam[:, None, None] * L
         if flip:  # the block's slices in sweep order
@@ -439,6 +448,10 @@ def _sweep_composite(
         w = t_enter * alpha
         T = torch.cumprod(torch.cat([T[None], 1.0 - alpha]), 0)[-1]
         acc = [s + (w * x).sum(0) for s, x in zip(acc, (r, g, b_, t_k))]
+    profiling.count("sweep.blocks_run", len(blocks))
+    profiling.count("sweep.blocks_skipped", -(-Z // BLK) - len(blocks))
+    profiling.count("sweep.blocks_edit_culled", culled)
+    profiling.count("sweep.blocks_edit_partial", partial)
     ws = 1.0 - T
     return torch.stack([acc[0].T, acc[1].T, acc[2].T, acc[3].T, ws.T], -1)   # [U, U, 5]
 
@@ -532,82 +545,86 @@ def render_sweep(
     ``shade_bf16`` (default: on for palette volumes) runs the per-sample shade in bf16;
     compositing stays f32.
     """
-    dev = sv.vols[0].device
-    plan = plan_sweep(np.asarray(pose), intrinsics, H, W, sv.bound, u_res)
-    P = sv.num_basis
-    if shade_bf16 is None:
-        shade_bf16 = P > 0
-    if P:
-        if basis_color is None:
-            raise ValueError("palette sweep needs basis_color [P, 3]")
-        bc = basis_color.to(dev, torch.float32) if torch.is_tensor(basis_color) \
-            else _upload(basis_color, dev)
-    else:
-        bc = torch.zeros((1, 3), device=dev)
-    has_edit = edit is not None
-    has_mask = False
-    edit_bases = None
-    if has_edit and not edit.weight_mode:
-        # bases the edit touches (the neutral delta (0, 1, 1) is an HSV identity):
-        # none -> drop the edit, all -> None
-        d = np.asarray(edit.delta_hsv.cpu() if torch.is_tensor(edit.delta_hsv)
-                       else edit.delta_hsv, np.float32)
-        touched = tuple(
-            int(p) for p in range(d.shape[0])
-            if abs((d[p, 0] + 180.0) % 360.0 - 180.0) > 1e-4
-            or abs(d[p, 1] - 1.0) > 1e-4 or abs(d[p, 2] - 1.0) > 1e-4)
-        if not touched:
-            has_edit = False
-        elif len(touched) < d.shape[0]:
-            edit_bases = touched
-    if edit is None:
-        edit = make_region_edit(max(P, 1), clip_dim=1)
-    elif bool(np.asarray(edit.use_clip)):
-        if clip_masks is None:
-            raise ValueError(
-                "clip-weighted sweep edit needs clip_masks="
-                "build_clip_masks(baked.clip_feat, edit.mean_clip, edit.std_clip)")
-        has_mask = True
+    with profiling.span("sweep.frame"):
+        with profiling.span("sweep.plan"):
+            dev = sv.vols[0].device
+            plan = plan_sweep(np.asarray(pose), intrinsics, H, W, sv.bound, u_res)
+            P = sv.num_basis
+            if shade_bf16 is None:
+                shade_bf16 = P > 0
+            if P:
+                if basis_color is None:
+                    raise ValueError("palette sweep needs basis_color [P, 3]")
+                bc = basis_color.to(dev, torch.float32) if torch.is_tensor(basis_color) \
+                    else _upload(basis_color, dev)
+            else:
+                bc = torch.zeros((1, 3), device=dev)
+            has_edit = edit is not None
+            has_mask = False
+            edit_bases = None
+            if has_edit and not edit.weight_mode:
+                # bases the edit touches (the neutral delta (0, 1, 1) is an HSV identity):
+                # none -> drop the edit, all -> None
+                d = np.asarray(edit.delta_hsv.cpu() if torch.is_tensor(edit.delta_hsv)
+                               else edit.delta_hsv, np.float32)
+                touched = tuple(
+                    int(p) for p in range(d.shape[0])
+                    if abs((d[p, 0] + 180.0) % 360.0 - 180.0) > 1e-4
+                    or abs(d[p, 1] - 1.0) > 1e-4 or abs(d[p, 2] - 1.0) > 1e-4)
+                if not touched:
+                    has_edit = False
+                elif len(touched) < d.shape[0]:
+                    edit_bases = touched
+            if edit is None:
+                edit = make_region_edit(max(P, 1), clip_dim=1)
+            elif bool(np.asarray(edit.use_clip)):
+                if clip_masks is None:
+                    raise ValueError(
+                        "clip-weighted sweep edit needs clip_masks="
+                        "build_clip_masks(baked.clip_feat, edit.mean_clip, edit.std_clip)")
+                has_mask = True
 
-    mean_p = np.asarray(edit.mean_xyz, np.float32)[list(plan.perm)]
-    uni = np.empty(_UNI_LEN, np.float32)
-    uni[0:3] = plan.o_p
-    uni[3:9] = (plan.gx0, plan.gdx, plan.gy0, plan.gdy, plan.z_ref, plan.dsign)
-    uni[9:13] = (offsets_weight, density_scale, min_near, sv.bound)
-    uni[13:16] = mean_p
-    uni[16] = float(np.asarray(edit.use_xyz))
-    uni[17] = float(np.asarray(edit.std_xyz))
-    uni[18] = view_dep_weight
-    w_from_p = np.zeros((3, 3), np.float32)
-    for i, pi in enumerate(plan.perm):
-        w_from_p[pi, i] = 1.0
-    uni[19:28] = w_from_p.reshape(-1)
+            mean_p = np.asarray(edit.mean_xyz, np.float32)[list(plan.perm)]
+            uni = np.empty(_UNI_LEN, np.float32)
+            uni[0:3] = plan.o_p
+            uni[3:9] = (plan.gx0, plan.gdx, plan.gy0, plan.gdy, plan.z_ref, plan.dsign)
+            uni[9:13] = (offsets_weight, density_scale, min_near, sv.bound)
+            uni[13:16] = mean_p
+            uni[16] = float(np.asarray(edit.use_xyz))
+            uni[17] = float(np.asarray(edit.std_xyz))
+            uni[18] = view_dep_weight
+            w_from_p = np.zeros((3, 3), np.float32)
+            for i, pi in enumerate(plan.perm):
+                w_from_p[pi, i] = 1.0
+            uni[19:28] = w_from_p.reshape(-1)
 
-    uniw = np.empty(_UNIW_LEN, np.float32)
-    uniw[0:3] = plan.o_p
-    uniw[3:12] = plan.rot_p.reshape(-1)
-    uniw[12:16] = [float(v) for v in intrinsics]
-    uniw[16:21] = (plan.gx0, plan.gdx, plan.gy0, plan.gdy, plan.z_ref)
-    uniw[21:23] = (sv.bound, min_near)
-    uniw[23:26] = np.broadcast_to(np.asarray(bg_color, np.float32), (3,))
+            uniw = np.empty(_UNIW_LEN, np.float32)
+            uniw[0:3] = plan.o_p
+            uniw[3:12] = plan.rot_p.reshape(-1)
+            uniw[12:16] = [float(v) for v in intrinsics]
+            uniw[16:21] = (plan.gx0, plan.gdx, plan.gy0, plan.gdy, plan.z_ref)
+            uniw[21:23] = (sv.bound, min_near)
+            uniw[23:26] = np.broadcast_to(np.asarray(bg_color, np.float32), (3,))
 
-    # per-slice HSV culling only when the edit is tight enough that many slices skip
-    edit_cull = bool(has_edit and np.asarray(edit.use_xyz) and not has_mask
-                     and 6.9 * float(np.asarray(edit.std_xyz)) < sv.bound ** 2)
-    sty = None
-    if stylizer is not None:
-        sty = tuple(_upload(np.asarray(x.cpu() if torch.is_tensor(x) else x, np.float32)
-                            .reshape(shape), dev)
-                    for x, shape in ((stylizer.dI, (-1,)), (stylizer.dP, (-1, 3)),
-                                     (stylizer.ddelta, (-1, 3, 3))))
-    dhsv = edit.delta_hsv.to(dev, torch.float32) if torch.is_tensor(edit.delta_hsv) \
-        else _upload(np.asarray(edit.delta_hsv, np.float32), dev)
-    inter = _sweep_composite(
-        sv.vols[plan.axis], sv.occ[plan.axis], bc, dhsv, uni,
-        clip_masks[plan.axis] if has_mask else None, sty,
-        num_basis=P, u_res=u_res, t_thresh=float(t_thresh),
-        weight_mode=bool(edit.weight_mode), has_edit=has_edit,
-        edit_cull=edit_cull, vd_bands=sv.vd_bands,
-        edit_bases=edit_bases, shade_bf16=bool(shade_bf16),
-    )
-    return _warp_to_screen(inter, uniw, h=H, w=W, u_res=u_res)
+            # per-slice HSV culling only when the edit is tight enough that many slices skip
+            edit_cull = bool(has_edit and np.asarray(edit.use_xyz) and not has_mask
+                             and 6.9 * float(np.asarray(edit.std_xyz)) < sv.bound ** 2)
+            sty = None
+            if stylizer is not None:
+                sty = tuple(_upload(np.asarray(x.cpu() if torch.is_tensor(x) else x, np.float32)
+                                    .reshape(shape), dev)
+                            for x, shape in ((stylizer.dI, (-1,)), (stylizer.dP, (-1, 3)),
+                                             (stylizer.ddelta, (-1, 3, 3))))
+            dhsv = edit.delta_hsv.to(dev, torch.float32) if torch.is_tensor(edit.delta_hsv) \
+                else _upload(np.asarray(edit.delta_hsv, np.float32), dev)
+        with profiling.span("sweep.composite"):
+            inter = _sweep_composite(
+                sv.vols[plan.axis], sv.occ[plan.axis], bc, dhsv, uni,
+                clip_masks[plan.axis] if has_mask else None, sty,
+                num_basis=P, u_res=u_res, t_thresh=float(t_thresh),
+                weight_mode=bool(edit.weight_mode), has_edit=has_edit,
+                edit_cull=edit_cull, vd_bands=sv.vd_bands,
+                edit_bases=edit_bases, shade_bf16=bool(shade_bf16),
+            )
+        with profiling.span("sweep.warp"):
+            return _warp_to_screen(inter, uniw, h=H, w=W, u_res=u_res)

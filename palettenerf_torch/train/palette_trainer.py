@@ -63,6 +63,7 @@ from ..models.palette import (FROZEN, PaletteSpec, get_palette_weight_with_hist,
 from ..ops.occupancy import GridState
 from ..render.palette_renderer import (RegionEdit, StylizerParams, render_palette_eval,
                                        render_palette_train)
+from ..utils import profiling
 from . import checkpoint as ckpt_lib
 from .draws import Draws
 from .trainer import Trainer, eval_gt, gt_to_color_space
@@ -170,54 +171,56 @@ class PaletteTrainer(Trainer):
         draws = draws or self.draws
         shard = self._step_shard(rays_o.shape[0])
         n = rays_o.shape[0] if shard is None else shard.n
-        smooth = self.require_smooth_loss
-        patch = smooth and opt.random_size > 0 and opt.lambda_patchsmooth > 0
-        if patch and (inds is None or width is None):
-            raise ValueError("the patch-smooth term needs the batch's pixel indices and width")
-        images = gt_to_color_space(opt, images)
-        if images.shape[-1] == 4 and spec.bg_radius <= 0:
-            if bg is None:
-                bg = draws.background(n)
-            bg = self._take(bg, shard)
-            gt = images[..., :3] * images[..., 3:] + bg * (1.0 - images[..., 3:])
-        else:
-            bg = torch.ones((3,), dtype=torch.float32, device=dev)
-            gt = images[..., :3]
-        if noise is None:
-            noise = draws.jitter(n)
-        noise = self._take(noise, shard)
-        if smooth and jit_u is None:
-            jit_u = draws.smooth_jitter(n * self.train_settings.num_samples)
-        jit_u = self._take(jit_u, shard)
-        rand = self._encode_rand(n, enc_u, enc_lvls, shard, draws)
+        profiling.count("train.ray_count", rays_o.shape[0])
+        with profiling.span("train.forward"):
+            smooth = self.require_smooth_loss
+            patch = smooth and opt.random_size > 0 and opt.lambda_patchsmooth > 0
+            if patch and (inds is None or width is None):
+                raise ValueError("the patch-smooth term needs the batch's pixel indices and width")
+            images = gt_to_color_space(opt, images)
+            if images.shape[-1] == 4 and spec.bg_radius <= 0:
+                if bg is None:
+                    bg = draws.background(n)
+                bg = self._take(bg, shard)
+                gt = images[..., :3] * images[..., 3:] + bg * (1.0 - images[..., 3:])
+            else:
+                bg = torch.ones((3,), dtype=torch.float32, device=dev)
+                gt = images[..., :3]
+            if noise is None:
+                noise = draws.jitter(n)
+            noise = self._take(noise, shard)
+            if smooth and jit_u is None:
+                jit_u = draws.smooth_jitter(n * self.train_settings.num_samples)
+            jit_u = self._take(jit_u, shard)
+            rand = self._encode_rand(n, enc_u, enc_lvls, shard, draws)
 
-        p = self.params
-        out = render_palette_train(p, spec, self.grid_state.bitfield, rays_o, rays_d,
-                                   self.train_settings, bg_color=bg,
-                                   freeze_basis_color=self.freeze_basis_color,
-                                   require_smooth_loss=smooth, noise=noise, jit_u=jit_u,
-                                   rand=rand)
-        self._add_overflow(out)
-        per_ray = ((out["image"] - gt) ** 2).mean(-1)
-        loss = per_ray.mean()
-        loss = loss + ((out["direct_rgb"] - gt) ** 2).mean()
-        if spec.pred_clip:
-            loss = loss + ((out["clip_feat"] - gt_feat) ** 2).mean()
-        loss = loss + opt.lambda_sparsity * out["omega_sparsity"].mean()
-        loss = loss + opt.lambda_offsets * out["offsets_norm"].mean()
-        loss = loss + opt.lambda_view_dep * out["view_dep_norm"].mean()
-        if smooth and opt.lambda_smooth > 0:
-            loss = loss + opt.lambda_smooth * out["smooth_norm"].mean()
-        if patch:
-            loss = loss + opt.lambda_patchsmooth * patch_smooth_term(out, inds, width,
-                                                                     opt.sigma_color)
-        if "hist_weights" in p:
-            gt_w = get_palette_weight_with_hist(gt, p["hist_weights"]).detach()
-            loss = loss + self.lambda_weight * ((gt_w - out["basis_acc"]) ** 2).mean()
-        param_loss = None  # the term of the parameters alone: once per step, not per rank
-        if self.lambda_palette:
-            param_loss = self.lambda_palette * (
-                (p["basis_color"] - p["basis_color_origin"]) ** 2).sum(-1).mean()
+            p = self.params
+            out = render_palette_train(p, spec, self.grid_state.bitfield, rays_o, rays_d,
+                                       self.train_settings, bg_color=bg,
+                                       freeze_basis_color=self.freeze_basis_color,
+                                       require_smooth_loss=smooth, noise=noise, jit_u=jit_u,
+                                       rand=rand)
+            self._add_overflow(out)
+            per_ray = ((out["image"] - gt) ** 2).mean(-1)
+            loss = per_ray.mean()
+            loss = loss + ((out["direct_rgb"] - gt) ** 2).mean()
+            if spec.pred_clip:
+                loss = loss + ((out["clip_feat"] - gt_feat) ** 2).mean()
+            loss = loss + opt.lambda_sparsity * out["omega_sparsity"].mean()
+            loss = loss + opt.lambda_offsets * out["offsets_norm"].mean()
+            loss = loss + opt.lambda_view_dep * out["view_dep_norm"].mean()
+            if smooth and opt.lambda_smooth > 0:
+                loss = loss + opt.lambda_smooth * out["smooth_norm"].mean()
+            if patch:
+                loss = loss + opt.lambda_patchsmooth * patch_smooth_term(out, inds, width,
+                                                                         opt.sigma_color)
+            if "hist_weights" in p:
+                gt_w = get_palette_weight_with_hist(gt, p["hist_weights"]).detach()
+                loss = loss + self.lambda_weight * ((gt_w - out["basis_acc"]) ** 2).mean()
+            param_loss = None  # the term of the parameters alone: once per step, not per rank
+            if self.lambda_palette:
+                param_loss = self.lambda_palette * (
+                    (p["basis_color"] - p["basis_color_origin"]) ** 2).sum(-1).mean()
 
         loss = self._update(loss, zero_grad_for=(p["basis_color"],), param_loss=param_loss)
         return loss, per_ray.detach()
@@ -291,14 +294,16 @@ class PaletteTrainer(Trainer):
         intr = [float(v) for v in train_ds.intrinsics]
         losses = []
         for idx in draws.order(B):
-            inds = draws.pixels(self.opt.num_rays, H * W)
-            inds = self._take(inds, self._batch_shard(self.opt.num_rays))
-            pix = self._dev_images[idx][inds]
-            gt_feat = None if self._dev_feats is None else self._dev_feats[idx][inds]
-            rays_o, rays_d = gen_rays_torch(self._dev_poses[idx], intr, H, W, inds)
-            loss, _ = self.train_step(rays_o, rays_d, pix, gt_feat=gt_feat, draws=draws)
-            losses.append(loss)
-            self.global_step += 1
+            with profiling.span("train.step", unit=self.global_step):
+                with profiling.span("train.rays"):
+                    inds = draws.pixels(self.opt.num_rays, H * W)
+                    inds = self._take(inds, self._batch_shard(self.opt.num_rays))
+                    pix = self._dev_images[idx][inds]
+                    gt_feat = None if self._dev_feats is None else self._dev_feats[idx][inds]
+                    rays_o, rays_d = gen_rays_torch(self._dev_poses[idx], intr, H, W, inds)
+                loss, _ = self.train_step(rays_o, rays_d, pix, gt_feat=gt_feat, draws=draws)
+                losses.append(loss)
+                self.global_step += 1
         return losses
 
     # ------------------------------------------------------------------ eval / test

@@ -84,6 +84,7 @@ from ..ops.occupancy import (GridState, bake_fine_bitfield, init_grid_state,
 from ..ops.scatter import check_refused
 from ..render.nerf_renderer import (RenderSettings, render_nerf_eval, render_nerf_train,
                                     train_rows)
+from ..utils import profiling
 from ..utils.color import srgb_to_linear
 from . import checkpoint as ckpt_lib
 from .draws import Draws
@@ -335,32 +336,34 @@ class Trainer:
         draws = draws or self.draws
         shard = self._step_shard(rays_o.shape[0])
         n = rays_o.shape[0] if shard is None else shard.n
-        images = gt_to_color_space(opt, images)
-        c = images.shape[-1]
-        if c == 4 and self.spec.bg_radius <= 0 and not opt.no_bg:
-            if bg is None:
-                bg = draws.background(n)
-            bg = self._take(bg, shard)
-            gt = images[..., :3] * images[..., 3:] + bg * (1.0 - images[..., 3:])
-        else:
-            bg = torch.ones((3,), dtype=torch.float32, device=dev)
-            gt = images[..., :3]
-        if noise is None:
-            noise = draws.jitter(n)
-        noise = self._take(noise, shard)
-        rand = self._encode_rand(n, enc_u, enc_lvls, shard, draws)
+        profiling.count("train.ray_count", rays_o.shape[0])
+        with profiling.span("train.forward"):
+            images = gt_to_color_space(opt, images)
+            c = images.shape[-1]
+            if c == 4 and self.spec.bg_radius <= 0 and not opt.no_bg:
+                if bg is None:
+                    bg = draws.background(n)
+                bg = self._take(bg, shard)
+                gt = images[..., :3] * images[..., 3:] + bg * (1.0 - images[..., 3:])
+            else:
+                bg = torch.ones((3,), dtype=torch.float32, device=dev)
+                gt = images[..., :3]
+            if noise is None:
+                noise = draws.jitter(n)
+            noise = self._take(noise, shard)
+            rand = self._encode_rand(n, enc_u, enc_lvls, shard, draws)
 
-        out = render_nerf_train(self.params, self.spec, self.grid_state.bitfield,
-                                rays_o, rays_d, self.train_settings,
-                                bg_color=bg, rays_gt=gt, noise=noise, rand=rand)
-        self._add_overflow(out)
-        per_ray = ((out["image"] - gt) ** 2).mean(-1) + out["rgb_norm"] * opt.lambda_sparse
-        loss = per_ray.mean()
-        if self._rlpips_kernels is not None:
-            ps = opt.patch_size
-            loss = loss + opt.lambda_lpips * rlpips_distance(
-                self._rlpips_kernels, out["image"].reshape(-1, ps, ps, 3),
-                gt.reshape(-1, ps, ps, 3))
+            out = render_nerf_train(self.params, self.spec, self.grid_state.bitfield,
+                                    rays_o, rays_d, self.train_settings,
+                                    bg_color=bg, rays_gt=gt, noise=noise, rand=rand)
+            self._add_overflow(out)
+            per_ray = ((out["image"] - gt) ** 2).mean(-1) + out["rgb_norm"] * opt.lambda_sparse
+            loss = per_ray.mean()
+            if self._rlpips_kernels is not None:
+                ps = opt.patch_size
+                loss = loss + opt.lambda_lpips * rlpips_distance(
+                    self._rlpips_kernels, out["image"].reshape(-1, ps, ps, 3),
+                    gt.reshape(-1, ps, ps, 3))
 
         return self._update(loss), per_ray.detach()
 
@@ -382,7 +385,8 @@ class Trainer:
         else:
             loss = loss / self.dp.world
             total = loss if param_loss is None or not self.dp.is_main else loss + param_loss
-        total.backward()
+        with profiling.span("train.backward"):
+            total.backward()
         for p in zero_grad_for:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -390,16 +394,17 @@ class Trainer:
             total = self.dp.reduce_grads(self._trainable(self.params), loss.detach()[None])[0]
             if param_loss is not None:
                 total = total + param_loss.detach()
-        lr = opt.lr * 0.1 ** min(self.opt_step / opt.iters, 1.0)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.step()
-        self.opt_step += 1
-        if self.ema_decay is not None:
-            with torch.no_grad():
-                ema, cur = self._trainable(self.ema_params), self._trainable(self.params)
-                torch._foreach_mul_(ema, self.ema_decay)
-                torch._foreach_add_(ema, cur, alpha=1.0 - self.ema_decay)
+        with profiling.span("train.optim"):
+            lr = opt.lr * 0.1 ** min(self.opt_step / opt.iters, 1.0)
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+            self.optimizer.step()
+            self.opt_step += 1
+            if self.ema_decay is not None:
+                with torch.no_grad():
+                    ema, cur = self._trainable(self.ema_params), self._trainable(self.params)
+                    torch._foreach_mul_(ema, self.ema_decay)
+                    torch._foreach_add_(ema, cur, alpha=1.0 - self.ema_decay)
         return total.detach()
 
     _field_density = staticmethod(nerf_density)
@@ -421,10 +426,11 @@ class Trainer:
             kw.update(partial_fraction=4,
                       slab_index=self.global_step // opt.update_extra_interval)
             cells //= 4
-        noise = (draws or self.draws).refresh_noise(
-            (self.grid_state.density_grid.shape[0], cells, 3))
-        self.grid_state = update_density_grid(
-            self.grid_state, lambda p: self._density(self.params, p), noise=noise, **kw)
+        with profiling.span("train.refresh", unit=self.global_step):
+            noise = (draws or self.draws).refresh_noise(
+                (self.grid_state.density_grid.shape[0], cells, 3))
+            self.grid_state = update_density_grid(
+                self.grid_state, lambda p: self._density(self.params, p), noise=noise, **kw)
 
     def train(self, train_ds, valid_ds=None, max_epochs: int = 1,
               draws: Optional[Draws] = None):
@@ -454,6 +460,10 @@ class Trainer:
         """One step per training image, in a random order: device-sampled pixels on
         device-resident images, or the host-sampled epoch (``host_sampled``). ``draws``
         replaces the trainer's draw source."""
+        with profiling.span("train.epoch", unit=self.epoch):
+            return self._train_one_epoch(train_ds, draws)
+
+    def _train_one_epoch(self, train_ds, draws: Optional[Draws]) -> float:
         t0 = time.time()
         self._overflow = None
         draws = draws or self.draws
@@ -461,8 +471,10 @@ class Trainer:
             losses = self._host_epoch(train_ds, draws)
         else:
             losses = self._device_epoch(train_ds, draws)
-        avg = float(torch.stack(losses).mean())
-        self._check_refused()  # the host has just waited for the device
+        with profiling.span("train.read"):
+            avg = float(torch.stack(losses).mean())
+            self._check_refused()  # the host has just waited for the device
+            profiling.flush()      # the device counters, read while it waits for nothing
         self.stats["loss"].append(avg)
         self.stats.setdefault("epoch_seconds", []).append(time.time() - t0)
         note = self._epoch_note()
@@ -504,15 +516,17 @@ class Trainer:
         order = draws.order(B)
         losses = []
         for i, idx in enumerate(order):
-            if i % self.opt.update_extra_interval == 0:
-                self.refresh_grid(draws)
-            inds = draws.pixels(self.opt.num_rays, H * W)
-            inds = self._take(inds, self._batch_shard(self.opt.num_rays))
-            pix = self._dev_images[idx][inds]
-            rays_o, rays_d = gen_rays_torch(self._dev_poses[idx], intr, H, W, inds)
-            loss, _ = self.train_step(rays_o, rays_d, pix, draws=draws)
-            losses.append(loss)
-            self.global_step += 1
+            with profiling.span("train.step", unit=self.global_step):
+                if i % self.opt.update_extra_interval == 0:
+                    self.refresh_grid(draws)
+                with profiling.span("train.rays"):
+                    inds = draws.pixels(self.opt.num_rays, H * W)
+                    inds = self._take(inds, self._batch_shard(self.opt.num_rays))
+                    pix = self._dev_images[idx][inds]
+                    rays_o, rays_d = gen_rays_torch(self._dev_poses[idx], intr, H, W, inds)
+                loss, _ = self.train_step(rays_o, rays_d, pix, draws=draws)
+                losses.append(loss)
+                self.global_step += 1
         return losses
 
     def _host_epoch(self, train_ds, draws: Draws) -> list:
@@ -523,17 +537,18 @@ class Trainer:
         losses."""
         losses = []
         for data in train_ds.iter_epoch():
-            if not self.grid_frozen and self.global_step % self.opt.update_extra_interval == 0:
-                self.refresh_grid(draws)
-            loss, per_ray = self._batch_step(data, draws=draws)
-            losses.append(loss)
-            self.global_step += 1
-            if "inds_coarse" in data:
-                if self.dp is not None:  # every rank updates its map from every rank's rows
-                    per_ray = self.dp.gather_rows(
-                        per_ray, self._batch_shard(len(data["inds_coarse"])))
-                train_ds.update_error_map(data["index"], data["inds_coarse"],
-                                          per_ray.cpu().numpy())
+            with profiling.span("train.step", unit=self.global_step):
+                if not self.grid_frozen and self.global_step % self.opt.update_extra_interval == 0:
+                    self.refresh_grid(draws)
+                loss, per_ray = self._batch_step(data, draws=draws)
+                losses.append(loss)
+                self.global_step += 1
+                if "inds_coarse" in data:
+                    if self.dp is not None:  # every rank updates its map from every rank's rows
+                        per_ray = self.dp.gather_rows(
+                            per_ray, self._batch_shard(len(data["inds_coarse"])))
+                    train_ds.update_error_map(data["index"], data["inds_coarse"],
+                                              per_ray.cpu().numpy())
         return losses
 
     # ------------------------------------------------------------------ eval
@@ -567,6 +582,10 @@ class Trainer:
         JAX counts them) are summed over the frame on the device and read once, after
         every chunk; a frame that dropped any is logged (JAX :518-524), and the count is
         kept in ``last_compact_overflow``."""
+        with profiling.span("eval.frame"):
+            return self._render_image(rays_o, rays_d, bg_color, chunk)
+
+    def _render_image(self, rays_o, rays_d, bg_color, chunk: int) -> dict:
         rays_o = torch.as_tensor(rays_o, dtype=torch.float32)
         rays_d = torch.as_tensor(rays_d, dtype=torch.float32)
         bg = None if bg_color is None else torch.as_tensor(
@@ -575,21 +594,26 @@ class Trainer:
         bitfield = self._eval_bitfield()
 
         def render(start):
-            return self._render_chunk(params, bitfield, rays_o[start:start + chunk].to(self.device),
-                                      rays_d[start:start + chunk].to(self.device), bg,
-                                      pad_to=chunk)
+            with profiling.span("eval.chunk"):
+                return self._render_chunk(params, bitfield,
+                                          rays_o[start:start + chunk].to(self.device),
+                                          rays_d[start:start + chunk].to(self.device), bg,
+                                          pad_to=chunk)
 
         starts = range(0, rays_o.shape[0], chunk)
         if self.dp is not None:  # whole chunks, chunk k on rank k mod n_devices
             starts = starts[self.dp.rank::self.dp.world]
+        profiling.count("eval.chunks", len(starts))
         outs = [render(start) for start in starts]
         if self.dp is not None:
             # a rank without a chunk of its own (a frame of fewer chunks than ranks)
             # renders the first one for the outputs' layout, and writes nothing of it
             layout = outs[0] if outs else render(0)
             outs = [self._gather_chunks(layout, starts, outs, rays_o.shape[0])]
-        dropped = [o.pop("compact_overflow") for o in outs if "compact_overflow" in o]
-        frame = {k: torch.cat([o[k] for o in outs]).cpu().numpy() for k in outs[0]}
+        with profiling.span("eval.gather"):
+            dropped = [o.pop("compact_overflow") for o in outs if "compact_overflow" in o]
+            frame = {k: torch.cat([o[k] for o in outs]).cpu().numpy() for k in outs[0]}
+            profiling.flush()  # the device counters, read while the device waits for nothing
         if dropped:
             self.last_compact_overflow = int(torch.stack(dropped).sum())
             if self.last_compact_overflow > 0:

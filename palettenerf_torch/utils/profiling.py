@@ -8,17 +8,32 @@ The port's counterpart of ``palettenerf_tpu/utils/profiling.py``:
 - ``PhaseTimer`` sums wall seconds per named phase, with the JAX class's API and the
   same ``report()`` text for the same totals.
 - ``trace(log_dir)`` records a ``torch.profiler`` trace (CPU activity, and CUDA
-  activity when a card is present) and writes it as a Chrome trace into ``log_dir``.
+  activity when a card is present) and writes it as a Chrome trace into ``log_dir``,
+  with the recorder's spans and counters beside it.
+
+The recorder (``span``, ``count``, ``count_device``, ``snapshot``): the port's spans at
+its layer boundaries and its counters. It is on only while a ``torch.profiler`` records
+(or after ``enable()``); off, ``span`` returns a shared no-op context and the counters
+return at once, after one probe of the profiler's state (well under a microsecond). On, a
+span enters ``torch.profiler.record_function`` (so it lies on the profiler's timeline with
+the device's operations) and records its name, its start and end on ``time.time_ns()``
+(the clock of the profiler's events), its parent and its unit id (the global step, the
+frame's index). A device counter adds a tensor's sum into a device accumulator (two aten calls, a
+reduction and an add; four device operations on a card, the bool tensor's cast and the
+reduction's memset included), read by ``flush()`` at a host read the caller already makes.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
+
+_profiling = torch._C._autograd._profiler_enabled  # whether a torch.profiler records
 
 
 def _first_tensor(x) -> Optional[torch.Tensor]:
@@ -50,15 +65,17 @@ class PhaseTimer:
 
     @contextlib.contextmanager
     def phase(self, name: str, sync_on=None):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if sync_on is not None:
-                device_sync(sync_on)
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
+        """Time the block as phase ``name``; also the recorder's span ``extract.<name>``."""
+        with span(f"extract.{name}"):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                if sync_on is not None:
+                    device_sync(sync_on)
+                dt = time.perf_counter() - t0
+                self.totals[name] = self.totals.get(name, 0.0) + dt
+                self.counts[name] = self.counts.get(name, 0) + 1
 
     def report(self) -> str:
         total = sum(self.totals.values()) or 1.0
@@ -72,20 +89,158 @@ class PhaseTimer:
         return "\n".join(lines)
 
 
+class Recorder:
+    """Spans and counters of one process. ``records`` holds each span as [name, start_ns,
+    end_ns, parent's index in ``records`` (-1: none), unit], at most ``LIMIT`` of them
+    (``dropped`` counts the rest); ``totals`` per name [count, total ns, self ns], the self
+    time being the total less what the span's children cover; ``counters`` integers by
+    name."""
+
+    LIMIT = 200_000
+
+    def __init__(self):
+        self.forced = False
+        self.reset()
+
+    def reset(self) -> None:
+        self.records: List[list] = []
+        self.dropped = 0
+        self.totals: Dict[str, List[int]] = {}
+        self.counters: Dict[str, int] = {}
+        self.pending: Dict[str, torch.Tensor] = {}  # device counters not read yet
+        self.stack: List["_Span"] = []
+        self.roots: Dict[str, int] = {}  # a root span's occurrences: its unit by default
+
+    def flush(self) -> None:
+        """Read the device counters into ``counters``: one host read of them all."""
+        if not self.pending:
+            return
+        names = list(self.pending)
+        values = torch.stack([self.pending[n] for n in names]).tolist()
+        for n, v in zip(names, values):
+            self.counters[n] = self.counters.get(n, 0) + int(v)
+        self.pending.clear()
+
+    def snapshot(self) -> dict:
+        """The aggregates and counters (device counters read first)."""
+        self.flush()
+        return {"spans": {n: {"count": c, "total_ns": t, "self_ns": s}
+                          for n, (c, t, s) in self.totals.items()},
+                "counters": dict(self.counters), "records": len(self.records),
+                "dropped": self.dropped}
+
+
+class _Span:
+    __slots__ = ("rec", "name", "unit", "start", "child", "index", "rf")
+
+    def __init__(self, rec: Recorder, name: str, unit):
+        self.rec, self.name, self.unit = rec, name, unit
+
+    def __enter__(self):
+        rec = self.rec
+        parent = rec.stack[-1] if rec.stack else None
+        if self.unit is None:
+            if parent is not None:
+                self.unit = parent.unit
+            else:
+                self.unit = rec.roots.get(self.name, 0)
+                rec.roots[self.name] = self.unit + 1
+        self.rf = torch.profiler.record_function(self.name)
+        self.rf.__enter__()
+        self.child = 0
+        self.start = time.time_ns()
+        if len(rec.records) < rec.LIMIT:
+            self.index = len(rec.records)
+            rec.records.append([self.name, self.start, None,
+                                -1 if parent is None else parent.index, self.unit])
+        else:
+            self.index = -1
+            rec.dropped += 1
+        rec.stack.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        rec = self.rec
+        rec.stack.pop()
+        self.rf.__exit__(*exc)
+        dur = end - self.start
+        agg = rec.totals.setdefault(self.name, [0, 0, 0])
+        agg[0] += 1
+        agg[1] += dur
+        agg[2] += dur - self.child
+        if self.index >= 0:
+            rec.records[self.index][2] = end
+        if rec.stack:
+            rec.stack[-1].child += dur
+        return False
+
+
+RECORDER = Recorder()
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, unit=None):
+    """A context that records the block as span ``name`` while the recorder is on, else
+    the shared no-op context. ``unit`` (the global step, the frame's index) defaults to the
+    parent span's, and for a span without a parent to its occurrence count."""
+    if not (RECORDER.forced or _profiling()):
+        return _OFF
+    return _Span(RECORDER, name, unit)
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` (a host integer) to counter ``name`` while the recorder is on."""
+    if RECORDER.forced or _profiling():
+        RECORDER.counters[name] = RECORDER.counters.get(name, 0) + int(n)
+
+
+def count_device(name: str, x: torch.Tensor) -> None:
+    """Add ``x``'s sum to device counter ``name`` while the recorder is on: one reduction
+    and one add on ``x``'s device, no host read (``flush`` reads it)."""
+    if RECORDER.forced or _profiling():
+        RECORDER.pending[name] = RECORDER.pending.get(name, 0) + x.sum()
+
+
+def flush() -> None:
+    """Read the device counters (call it where the host already waits for the device)."""
+    RECORDER.flush()
+
+
+def snapshot() -> dict:
+    """``Recorder.snapshot`` of the process's recorder: everything recorded since the
+    process started or the last ``reset()``."""
+    return RECORDER.snapshot()
+
+
+def reset() -> None:
+    RECORDER.reset()
+
+
+def enable(on: bool = True) -> None:
+    """Keep the recorder on without a profiler (``on`` False: back to the profiler's
+    state)."""
+    RECORDER.forced = on
+
+
 @contextlib.contextmanager
 def trace(log_dir: str = "results/profile_trace"):
     """Profile the block with ``torch.profiler`` (CPU, plus CUDA when a card is present)
-    and write ``<log_dir>/trace_<pid>_<n>.json``, a Chrome trace; yields the profiler,
-    whose ``key_averages()`` sums the events by name."""
+    and write ``<log_dir>/trace_<pid>_<n>.json``, a Chrome trace, and beside it
+    ``spans_<pid>_<n>.json``, the recorder's ``snapshot()`` of the block with its span
+    records; yields the profiler, whose ``key_averages()`` sums the events by name."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    RECORDER.reset()
     with profile(activities=activities) as prof:
         yield prof
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     n = len([f for f in os.listdir(log_dir) if f.startswith(f"trace_{os.getpid()}_")])
     prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{n}.json"))
+    with open(os.path.join(log_dir, f"spans_{os.getpid()}_{n}.json"), "w") as f:
+        json.dump(dict(snapshot(), span_records=RECORDER.records), f)

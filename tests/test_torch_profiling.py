@@ -75,7 +75,7 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     log_dir = str(tmp_path / "trace")
     with tprof.trace(log_dir) as prof:
         (torch.randn(64, 64) @ torch.randn(64, 64)).sum()
-    files = os.listdir(log_dir)
+    files = [f for f in os.listdir(log_dir) if f.startswith("trace_")]
     assert len(files) == 1 and files[0].endswith(".json")
     with open(os.path.join(log_dir, files[0])) as f:
         events = json.load(f)["traceEvents"]
@@ -83,4 +83,4 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     assert any("mm" in e.key for e in prof.key_averages())
     with tprof.trace(log_dir):   # a second trace in the same directory: a second file
         torch.ones(4).sum()
-    assert len(os.listdir(log_dir)) == 2
+    assert len([f for f in os.listdir(log_dir) if f.startswith("trace_")]) == 2
