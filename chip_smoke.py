@@ -391,9 +391,10 @@ def time_ms(torch, fn, iters: int = 10, warmup: int = 2, head_start_ms: float = 
 
 def _counted():
     """Every kernel wrapper with its launch counter, by kernel name."""
-    from palettenerf_torch.ops import scatter, window_gather
+    from palettenerf_torch.ops import hashgrid_fast, scatter, window_gather
 
-    return {"scatter_add": scatter.scatter_add, "window_gather": window_gather.window_gather}
+    return {"scatter_add": scatter.scatter_add, "window_gather": window_gather.window_gather,
+            "hashgrid_encode": hashgrid_fast.encode_kernel}
 
 
 def zero_counts() -> None:
@@ -596,6 +597,78 @@ def phase_kernels(torch, dev):
     return [entry]
 
 
+def encode_bytes(M: int, L: int, C: int, residuals: bool) -> int:
+    """The bytes the exact forward must move: 12 in and 4 L C out per point, plus the
+    residuals' 8 L K (int32 row and f32 weight of each of K = 8 corners) with a backward."""
+    return M * (12 + 4 * L * C + (8 * L * 8 if residuals else 0))
+
+
+def phase_encode(torch, dev):
+    """The hash-grid encoder's exact forward kernel (csrc/hashgrid_encode.cu) at the cells'
+    encoder (16 levels x 2, 6,119,864 rows): bit for bit against the plain version on the
+    card, then timed beside the plain version and the compulsory-byte bound at the train
+    shape (262,144 points, with and without residuals) and at round 0 of an exact chunk
+    (1,048,576 points, without), on uniform points and on points along rays (64 a segment
+    across the box). The table stays in L2 between calls, as it largely does on the path."""
+    from palettenerf_torch.ops import hashgrid_fast as hf
+    from palettenerf_torch.ops.hashgrid import HashGridSpec
+
+    spec = HashGridSpec.build(desired_resolution=2048, num_levels=16, level_dim=2,
+                              log2_hashmap_size=19)
+    L, C = spec.num_levels, spec.level_dim
+    gen = torch.Generator(device=dev).manual_seed(5)
+    table = (torch.rand((spec.total_params, C), generator=gen, device=dev) * 2 - 1) * 1e-2
+
+    def points(kind, M):
+        if kind == "uniform":
+            return torch.rand((M, 3), generator=gen, device=dev)
+        a, b = (torch.rand((M // 64, 1, 3), generator=gen, device=dev) for _ in range(2))
+        t = torch.linspace(0, 1, 64, device=dev)[None, :, None]
+        return (a + (b - a) * t).reshape(M, 3)
+
+    def plain(x, residuals):
+        if residuals:
+            return hf._encode_plain(table, spec, x, None, False)
+        return torch.cat([hf._encode_plain(table, spec, x[s:s + hf.NO_GRAD_CHUNK], None,
+                                           False)[0]
+                          for s in range(0, x.shape[0], hf.NO_GRAD_CHUNK)]), None
+
+    rows = []
+    for shape, M, residuals in (("train", 1 << 18, True), ("train", 1 << 18, False),
+                                ("exact round 0", 1 << 20, False)):
+        for kind in ("uniform", "rays"):
+            x = points(kind, M)
+            x[:4] = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [-0.01, 0.5, 0.5],
+                                  [0.5, 0.5, 1.01]], device=dev)
+            want, want_res = plain(x, residuals)
+            got, res = hf.encode_kernel(table, spec, x, residuals)
+            torch.cuda.synchronize()
+            same = torch.equal(got, want)
+            if residuals:
+                same &= all(torch.equal(res[i], want_res[i]) for i in (0, 1, 4))
+            if not same:
+                raise AssertionError(f"hashgrid_encode {shape} {kind}: not the plain "
+                                     f"version's bit for bit")
+            del want, want_res, got, res
+            iters = 20 if M <= 1 << 18 else 10
+            row = {"shape": shape, "points": kind, "M": M, "residuals": residuals,
+                   "ms": time_ms(torch, lambda: hf.encode_kernel(table, spec, x, residuals),
+                                 iters=iters),
+                   "plain_ms": time_ms(torch, lambda: plain(x, residuals), iters=3, warmup=1),
+                   "bound_ms": encode_bytes(M, L, C, residuals) / HBM_BYTES_PER_S * 1e3}
+            log(f"hashgrid_encode {shape}, {kind} points, M={M}, residuals {residuals}: "
+                f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({encode_bytes(M, L, C, residuals) / 1e6:.1f} MB); "
+                f"bit for bit")
+            rows.append(row)
+    first = rows[0]
+    return {"name": "hashgrid_encode", "route": "cuda",
+            "source": "palettenerf_torch/csrc/hashgrid_encode.cu", "replaces": None,
+            "launches": None, "max_abs_err": 0.0, "ms": first["ms"],
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"], "bound_by": "bytes",
+            "shapes": rows}
+
+
 def phase_window_gather(torch, dev):
     """window_gather against its plain version, bit for bit: the shapes of
     tests/test_window_gather.py, Rw 1 and 32, bf16 windows, M8 from 1 to 65,536; an
@@ -770,6 +843,9 @@ def phase_main_path(torch, dev):
     if launches["scatter_add"] != steps:
         raise AssertionError(f"scatter_add launched {launches['scatter_add']} times in "
                              f"{steps} train steps")
+    if launches["hashgrid_encode"] < steps:
+        raise AssertionError(f"hashgrid_encode launched {launches['hashgrid_encode']} times "
+                             f"in {steps} train steps")
     finite = all(bool(torch.isfinite(p).all()) for p in param_list(trainer.params))
     finite &= all(np.isfinite(v).all() for v in out.values())
     if not finite:
@@ -3778,8 +3854,8 @@ DEPTH_MODES = {"chain": depth_chain, "mip360": depth_mip360, "llff": depth_llff,
                    torch, dev, grads=True)}
 
 
-USAGE = ("usage: python3 chip_smoke.py [--dp-only | --real-scene-only [--trace-memory] | "
-         "--depth-only {" + ",".join(DEPTH_MODES) + "}]")
+USAGE = ("usage: python3 chip_smoke.py [--dp-only | --encode-only | --real-scene-only "
+         "[--trace-memory] | --depth-only {" + ",".join(DEPTH_MODES) + "}]")
 
 
 def parse_mode(args):
@@ -3788,6 +3864,8 @@ def parse_mode(args):
         return "all", None
     if args == ["--dp-only"]:
         return "dp", None
+    if args == ["--encode-only"]:
+        return "encode", None
     if args in (["--real-scene-only"], ["--real-scene-only", "--trace-memory"]):
         return "real", len(args) == 2
     if len(args) == 2 and args[0] == "--depth-only" and args[1] in DEPTH_MODES:
@@ -3825,20 +3903,27 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from palettenerf_torch import native
-    from palettenerf_torch.ops import scatter, window_gather
+    from palettenerf_torch.ops import hashgrid_fast, scatter, window_gather
 
     t0 = time.perf_counter()
-    libs = [scatter.LIBRARY, window_gather.LIBRARY, native.LIBRARY, native.IMAGE_LIBRARY]
+    libs = [scatter.LIBRARY, window_gather.LIBRARY, hashgrid_fast.LIBRARY, native.LIBRARY,
+            native.IMAGE_LIBRARY]
     with ThreadPoolExecutor(len(libs)) as pool:  # one compiler per source, all at once
         for f in [pool.submit(lib.build) for lib in libs]:
             f.result()
     log(f"build: {', '.join(os.path.basename(lib.source) for lib in libs)} in "
         f"{time.perf_counter() - t0:.1f} s (in parallel; the host C++ with: "
         f"{' '.join(native.LIBRARY.build_command[:-1])})")
-    for lib in libs[:2]:
+    for lib in libs[:3]:
         if lib.build_log:
             log(f"nvcc -Xptxas -v ({lib.name}):\n" + lib.build_log.strip())
 
+    if mode == "encode":
+        entry = phase_encode(torch, dev)
+        log(f"encode phase passed in {time.perf_counter() - t_start:.1f} s")
+        print(nvidia_smi())
+        print(json.dumps({"kernels": [entry]}))
+        return 0
     if mode == "dp":
         _, _, dp = phase_dp(torch, dev)
         log(f"data-parallel phase passed in {time.perf_counter() - t_start:.1f} s")
@@ -3861,6 +3946,7 @@ def main() -> int:
                                                  "count": torch.cuda.device_count()}}))
         return 0
     kernels = phase_kernels(torch, dev)
+    encode_entry = phase_encode(torch, dev)
     wg_entry = phase_window_gather(torch, dev)
     phase_reference(torch, dev)
     train_launches, path_times, train_ds, stage1, o_psnr = phase_main_path(torch, dev)
@@ -3915,6 +4001,10 @@ def main() -> int:
         k["path"] += ", train-real-scene, palette-real-scene"
     wg_entry["dp_launches_per_rank"] = dp_launches[wg_entry["name"]]
     kernels.append(wg_entry)
+    encode_entry.update(path="train, palette, edit", launches=train_launches["hashgrid_encode"],
+                        palette_launches=palette_launches["hashgrid_encode"],
+                        edit_launches=edit_launches["hashgrid_encode"])
+    kernels.append(encode_entry)
     log("compaction summary: " + json.dumps({
         "reference_max_abs_err": compact_ref_err, "train": compact_train,
         "stage1_eval": compact_eval, "palette_eval": compact_palette, "edit": compact_edit}))

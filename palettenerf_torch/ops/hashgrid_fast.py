@@ -5,7 +5,11 @@ whole mode matrix:
 
 - Exact forward: the global (concatenated-table) indices and trilinear weights of all
   corners of every point are computed in one vector pass over levels, then ONE flat
-  gather over the table (``_encode_T``, hashgrid_fast.py:320-332). For
+  gather over the table (``_encode_T``, hashgrid_fast.py:320-332). On the card, for
+  ``hash`` and ``tiled`` grids of three dimensions and an f32 table, this is one launch of
+  the CUDA kernel ``csrc/hashgrid_encode.cu`` (``encode_kernel``), which hashes, weights
+  and gathers in registers and gives what the plain version (``_encode_plain``) gives on
+  the card, bit for bit; every other mode and the CPU take the plain version. For
   ``gridtype="hash_xadd"`` the two x-corners of a cell are neighbouring rows, so the
   gather reads K = 4 rows of the overlapped pair table (``pair_table``) per (point,
   level), interpolates along x inside the wide row, then weights by y and z (:269-283).
@@ -29,17 +33,21 @@ stochastic draw's weight sum is built, corner by corner in f32.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils import profiling
+from ._cuda import CudaLibrary, check_launch
 from .hashgrid import PRIMES, HashGridSpec
 from .scatter import scatter_add
 
 _U32 = 0xFFFFFFFF
-# Points per pass of an encode that no gradient follows (eval renders, bakes, density
-# queries). Each pass materializes every corner's rows, indices and weights ([n, L, K, C]
+# Points per pass of a plain encode that no gradient follows (eval renders, bakes, density
+# queries; the CUDA kernel takes all points in one launch and writes only the features).
+# Each pass materializes every corner's rows, indices and weights ([n, L, K, C]
 # f32 and [n, L, K] twice: 1 KiB a point at 16 levels), which over an eval chunk of 16,384
 # rays x 256 slots took 18.7 GiB (ROADMAP C17). The JAX encoder maps over chunks of 32,768
 # points (``_ENCODE_CHUNK``) and, outside autograd, keeps no residuals; this caps the port's
@@ -51,6 +59,16 @@ NO_GRAD_CHUNK = 1 << 18
 # On the -O2 (8 columns) and --fast_grad (16) streams the two orders time within their
 # run-to-run spread on the H100 (chip_smoke.py; PERF.md).
 MIN_COLUMN_PERIOD = 16
+
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_ARR_F, _ARR_LL, _ARR_I = (ctypes.POINTER(t) for t in (ctypes.c_float, _LL, _I))
+LIBRARY = CudaLibrary("hashgrid_encode", {
+    # x, table, total_rows, channels, n_levels, scales, sizes, offsets, strides, hashed,
+    # half, n_points, out, idx, w, oob, stream
+    "hashgrid_encode": [_P, _P, _LL, _I, _I, _ARR_F, _ARR_LL, _ARR_LL, _ARR_LL, _ARR_I,
+                        ctypes.c_float, _LL, _P, _P, _P, _P, _P]})
+KERNEL_CHANNELS = (1, 2, 4, 8)  # the kernel moves a table row as one word
+KERNEL_MAX_LEVELS = 32
 
 
 class EncodeRand(NamedTuple):
@@ -95,6 +113,72 @@ def _level_constants(spec: HashGridSpec, device: torch.device):
             torch.tensor(sizes, **i64), torch.tensor(offs, **i64),
             torch.tensor(hashed, dtype=torch.bool, device=device),
             torch.tensor(strides, **i64), torch.tensor(spec.offsets, **i64))
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_levels(spec: HashGridSpec):
+    """The kernel's per-level arguments as host arrays: ``_level_constants``' scales,
+    sizes, offsets, strides [L, D] flattened and hashed flags."""
+    scales, sizes, offs, hashed, strides, _ = _level_constants(spec, torch.device("cpu"))
+    L, n = spec.num_levels, strides.numel()
+    return ((ctypes.c_float * L)(*scales.tolist()), (_LL * L)(*sizes.tolist()),
+            (_LL * L)(*offs.tolist()), (_LL * n)(*strides.reshape(-1).tolist()),
+            (_I * L)(*hashed.int().tolist()))
+
+
+def _on_card(table: torch.Tensor) -> bool:
+    return table.is_cuda
+
+
+def _kernel_takes(table: torch.Tensor, spec: HashGridSpec, stochastic: bool) -> bool:
+    """Whether an encode goes to the CUDA kernel: the exact forward of a ``hash`` or
+    ``tiled`` grid over three dimensions, of an f32 table on the card. The rest (the CPU,
+    ``stochastic``, ``hash_xadd``, other dimensions, other table dtypes) takes
+    ``_encode_plain``."""
+    return (not stochastic and spec.gridtype in ("hash", "tiled") and spec.input_dim == 3
+            and spec.level_dim in KERNEL_CHANNELS and spec.num_levels <= KERNEL_MAX_LEVELS
+            and table.dtype == torch.float32 and _on_card(table))
+
+
+def encode_kernel(table: torch.Tensor, spec: HashGridSpec, x: torch.Tensor,
+                  residuals: bool = True):
+    """The exact forward in one launch of ``csrc/hashgrid_encode.cu``: x [M, 3] f32 on the
+    table's card -> (out [M, L*C], residuals), what ``_encode_plain`` gives there, bit for
+    bit. Residuals (``residuals``): (idx [M, L, 8] int32, w [M, L, 8], None, None, oob
+    [M]), else None. Reads nothing back from the card."""
+    table, x = table.contiguous(), x.contiguous()
+    M, L, C = x.shape[0], spec.num_levels, spec.level_dim
+    dev = table.device
+    if table.shape != (spec.total_params, C) or x.dim() != 2 or x.shape[1] != 3:
+        raise ValueError(f"hashgrid_encode: need table [{spec.total_params}, {C}] and x "
+                         f"[M, 3], got {tuple(table.shape)} and {tuple(x.shape)}")
+    if x.device != dev or x.dtype != torch.float32 or table.dtype != torch.float32:
+        raise ValueError(f"hashgrid_encode kernel takes an f32 table and f32 x on one CUDA "
+                         f"device, got {table.dtype} on {dev} and {x.dtype} on {x.device}")
+    if table.data_ptr() % min(16, 4 * C):
+        raise ValueError("hashgrid_encode kernel loads a table row as one word: the table "
+                         "must be aligned to it (a view at an odd offset is not)")
+    out = torch.empty((M, L * C), dtype=torch.float32, device=dev)
+    res = None
+    if residuals:
+        res = (torch.empty((M, L, 8), dtype=torch.int32, device=dev),
+               torch.empty((M, L, 8), dtype=torch.float32, device=dev), None, None,
+               torch.empty((M,), dtype=torch.bool, device=dev))
+    if M == 0:
+        return out, res
+    idx, w, _, _, oob = res or (None,) * 5
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = LIBRARY.get().hashgrid_encode(
+            x.data_ptr(), table.data_ptr(), spec.total_params, C, L, *_kernel_levels(spec),
+            0.0 if spec.align_corners else 0.5, M, out.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in (idx, w, oob)), stream)
+    check_launch(err, "hashgrid_encode")
+    encode_kernel.launches += 1
+    return out, res
+
+
+encode_kernel.launches = 0
 
 
 def _pairs(spec: HashGridSpec) -> bool:
@@ -144,11 +228,14 @@ def corner_indices(spec: HashGridSpec, x: torch.Tensor):
     """
     consts = _level_constants(spec, x.device)
     pg0, frac = _geometry(spec, consts, x)
-    idxs, ws = zip(*(_corner(spec, consts, pg0, frac, b) for b in _corner_bits(spec)))
-    M, K = x.shape[0], len(idxs)
-    L = spec.num_levels
-    return (torch.stack(idxs, -1).to(torch.int32).reshape(M, L * K),
-            torch.stack(ws, -1).reshape(M, L * K))
+    idx, w = _stack_corners([_corner(spec, consts, pg0, frac, b) for b in _corner_bits(spec)])
+    return idx.reshape(x.shape[0], -1), w.reshape(x.shape[0], -1)
+
+
+def _stack_corners(corners):
+    """[(row [M, L], weight [M, L]) per corner] -> (idx [M, L, K] int32, w [M, L, K])."""
+    return (torch.stack([c[0] for c in corners], -1).to(torch.int32),
+            torch.stack([c[1] for c in corners], -1))
 
 
 def pair_table(table: torch.Tensor, spec: HashGridSpec) -> torch.Tensor:
@@ -184,7 +271,20 @@ def _position_hash_u(frac: torch.Tensor) -> torch.Tensor:
     return s - torch.floor(s)
 
 
-def _encode(table, spec: HashGridSpec, x, u, stochastic: bool):
+def _encode(table, spec: HashGridSpec, x, u, stochastic: bool, residuals: bool = True):
+    """x [M, D] -> (out [M, L*C], residuals), through the CUDA kernel where it takes the
+    call (``_kernel_takes``; without ``residuals`` it writes the features alone, and
+    returns None for them), else ``_encode_plain``; counted as ``encode.fused`` or
+    ``encode.plain`` points (``utils.profiling``)."""
+    M = x.shape[0]
+    if _kernel_takes(table, spec, stochastic):
+        profiling.count("encode.fused", M)
+        return encode_kernel(table, spec, x, residuals)
+    profiling.count("encode.plain", M)
+    return _encode_plain(table, spec, x, u, stochastic)
+
+
+def _encode_plain(table, spec: HashGridSpec, x, u, stochastic: bool):
     """x [M, D] -> (out [M, L*C], residuals). Residuals: exact (idx [M, L, K] int32,
     w [M, L, K], fx [M, L] for pairs, None); stochastic (drawn idx [M, L] int32, None,
     fx, rem [M, L] for pairs: the x-corner variate of the backward)."""
@@ -224,8 +324,7 @@ def _encode(table, spec: HashGridSpec, x, u, stochastic: bool):
             rem = ((u - prev) / wsel.clamp_min(1e-9)).clamp(0.0, 1.0 - 1e-6)
     else:
         K = len(corners)
-        idx = torch.stack([c[0] for c in corners], -1).to(torch.int32)     # [M, L, K]
-        w = torch.stack([c[1] for c in corners], -1)
+        idx, w = _stack_corners(corners)                                   # [M, L, K]
         rows = src.index_select(0, idx.reshape(-1)).reshape(M, L, K, src.shape[1])
         wt = w.to(table.dtype)
         acc = torch.zeros((M, L, C), dtype=table.dtype, device=table.device)
@@ -346,13 +445,15 @@ def hashgrid_encode_fast(table: torch.Tensor, x01: torch.Tensor, spec: HashGridS
     if rand is not None:
         u = None if rand.u is None else rand.u.reshape(-1, L)
         lvls = rand.lvls
-    if not (torch.is_grad_enabled() and table.requires_grad):
-        # no backward: no residuals, and the points in passes of NO_GRAD_CHUNK (each point's
-        # features depend on that point alone, so the result is the same bit for bit)
-        out = torch.cat([
-            _encode(table, spec, x[s:s + NO_GRAD_CHUNK],
-                    None if u is None else u[s:s + NO_GRAD_CHUNK], stochastic)[0]
-            for s in range(0, max(x.shape[0], 1), NO_GRAD_CHUNK)])
+    if not (torch.is_grad_enabled() and table.requires_grad):  # no backward
+        if _kernel_takes(table, spec, stochastic):  # all points in one launch, no residuals
+            out = _encode(table, spec, x, u, stochastic, residuals=False)[0]
+        else:  # passes of NO_GRAD_CHUNK points (each point's features depend on that point
+            #    alone, so the result is the same bit for bit)
+            out = torch.cat([
+                _encode(table, spec, x[s:s + NO_GRAD_CHUNK],
+                        None if u is None else u[s:s + NO_GRAD_CHUNK], stochastic)[0]
+                for s in range(0, max(x.shape[0], 1), NO_GRAD_CHUNK)])
     else:
         out = _HashGridEncode.apply(table, x, u, lvls, spec, scatter_dtype,
                                     bool(nearest_corner_grad), bool(stochastic),
