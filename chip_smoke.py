@@ -162,6 +162,12 @@ Launch counts are zeroed just before each main path and read just after (the dat
 ranks count in their own processes and report them); every kernel of the train, palette
 and edit paths must have launched there (the serve path runs no
 kernel of its own; on the edit path ``scatter_add`` launches in the training burst only).
+A kernel wrapper's ``launches`` counts the host's calls. Where palette steps replay a CUDA
+graph (the palette, bg + linear palette, edit, -O2 palette and real-scene palette paths,
+and the depth modes' palette stages), the kernels run without a call: those paths count
+each kernel's launches on the card from the kernel events of a ``torch.profiler`` window
+(``LaunchWindow``) over the training run or burst, whose times are then traced times, and
+log the window's palette steps, graph captures and replays beside them.
 The line before the last carries the card's name and power limit; before it, one JSON
 line lists every kernel with its numbers. The last line is the result object.
 Exits non-zero, printing no result, without a CUDA device or outside a checkout.
@@ -404,6 +410,70 @@ def zero_counts() -> None:
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in _counted().items()}
+
+
+class LaunchWindow:
+    """Each kernel's launches on the card, by the names of ``_counted``, from the kernel
+    events of a ``torch.profiler`` window (``profiling.kernel_launches``): the count where
+    palette steps replay a CUDA graph, whose kernels run without a call of their wrapper.
+    Open from its making to ``close()``, to the end of a palette training run
+    (``PaletteTrainer.train``) that ends inside it, or to the end of its ``epochs``-th
+    palette training epoch (a long run's
+    trace would hold millions of kernels). The recorder is on inside (the steps then replay a
+    graph of their own): ``steps``, ``captures`` and ``replays`` are the window's training
+    steps, graph captures and replays."""
+
+    def __init__(self, epochs: int = None):
+        from palettenerf_torch.train.palette_trainer import PaletteTrainer
+        from palettenerf_torch.utils import profiling
+
+        self.launches = None
+        train_run, epoch = PaletteTrainer.train, PaletteTrainer.train_one_epoch
+        window, left = self, [epochs]
+
+        def train(tr, *a, **kw):
+            try:
+                return train_run(tr, *a, **kw)
+            finally:
+                window.close()
+
+        def train_one_epoch(tr, *a, **kw):
+            out = epoch(tr, *a, **kw)
+            if left[0] is not None:
+                left[0] -= 1
+                if left[0] == 0:
+                    window.close()
+            return out
+
+        self._saved = {k: PaletteTrainer.__dict__.get(k) for k in ("train", "train_one_epoch")}
+        PaletteTrainer.train, PaletteTrainer.train_one_epoch = train, train_one_epoch
+        profiling.reset()
+        profiling.enable()
+        self._window = profiling.kernel_launches(list(_counted()))
+        self._counts = self._window.__enter__()
+
+    def close(self) -> dict:
+        """Close the window (once); returns the launches by kernel name."""
+        from palettenerf_torch.train.palette_trainer import PaletteTrainer
+        from palettenerf_torch.utils import profiling
+
+        if self.launches is None:
+            for name, fn in self._saved.items():  # None: inherited
+                if fn is None:
+                    delattr(PaletteTrainer, name)
+                else:
+                    setattr(PaletteTrainer, name, fn)
+            self._window.__exit__(None, None, None)
+            snap = profiling.snapshot()
+            profiling.enable(False)
+            profiling.reset()
+            self.launches = dict(self._counts)
+            self.steps = snap["spans"].get("train.step", {}).get("count", 0)
+            self.captures = snap["counters"].get("train.graph.captures", 0)
+            self.replays = snap["counters"].get("train.graph.replays", 0)
+            log(f"launch window: {self.launches} on the card; {self.steps} steps of "
+                f"training epochs, {self.captures} graph captures, {self.replays} replays")
+        return self.launches
 
 
 def scatter_kernels(scatter, period):
@@ -1719,13 +1789,13 @@ def phase_o2_palette(torch, dev, o_palette_psnr, n_views):
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    zero_counts()
+    window = LaunchWindow()   # the steps replay a CUDA graph; closes with the training run
     # -------------------------------------------------------------- main path
     t0 = time.perf_counter()
     trainer = main_palette.main(O2_PALETTE_ARGS, device=dev)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = read_counts()
+    launches = window.close()
     # -------------------------------------------------------------- checks
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     scatter.check_refused()
@@ -1761,12 +1831,12 @@ def phase_o2_palette(torch, dev, o_palette_psnr, n_views):
     cfg, tr = main_palette.load_test_trainer(O2_PALETTE_ARGS + ["--test"], device=dev)
     sess = EditingSession(tr, W=cfg.W, H=cfg.H, radius=cfg.radius, fovy=cfg.fovy)
     train_ds = PaletteDataset(cfg, type="train")
-    zero_counts()
+    window = LaunchWindow()   # the burst's steps replay a CUDA graph
     t0 = time.perf_counter()
     burst = sess.train_burst(train_ds, steps=16)
     torch.cuda.synchronize()
     burst_s = time.perf_counter() - t0
-    burst_launches = read_counts()
+    burst_launches = window.close()
     log(f"-O2 edit burst: 16 steps at {16 / burst_s:.2f} steps/s (loss {burst['loss']:.5f}), "
         f"launches {burst_launches}")
     if burst_launches["scatter_add"] != 16 or not math.isfinite(burst["loss"]) or not all(
@@ -1992,12 +2062,12 @@ def phase_palette(torch, dev, train_ds):
     # -------------------------------------------------------------- main path
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    zero_counts()
+    window = LaunchWindow()   # the steps replay a CUDA graph; closes with the training run
     t0 = time.perf_counter()
     trainer = main_palette.main(PALETTE_TRAIN_ARGS, device=dev)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = read_counts()
+    launches = window.close()
     # -------------------------------------------------------------- checks
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     scatter.check_refused()
@@ -2006,10 +2076,15 @@ def phase_palette(torch, dev, train_ds):
     log(f"palette main path: {trainer.global_step} steps in {total_s:.1f} s with data "
         f"loading, checkpoints and the test split's evaluation and renders; epoch losses "
         f"{['%.5f' % v for v in losses]}; steps/s per epoch (colors frozen / + smooth loss / "
-        f"+ colors unfrozen) {['%.2f' % (n_views / t) for t in secs]}; peak memory "
-        f"{peak_gb:.2f} GiB; launches {launches}")
+        f"+ colors unfrozen) {['%.2f' % (n_views / t) for t in secs]} (traced); peak "
+        f"memory {peak_gb:.2f} GiB; launches on the card in the training run {launches}")
     if trainer.global_step != 300 or len(losses) != 3:
         raise AssertionError(f"{trainer.global_step} steps in {len(losses)} epochs")
+    if window.steps != 300 or not 0 < window.captures <= 3 or \
+            window.replays != window.steps - window.captures:
+        raise AssertionError(f"palette steps: {window.steps} in the window, {window.captures} "
+                             f"captures, {window.replays} replays (each kind of step: one "
+                             f"eager step, then replays)")
     if not all(math.isfinite(v) for v in losses) or not losses[2] < losses[0]:
         raise AssertionError(f"palette loss did not fall: {losses}")
     if launches["scatter_add"] < 300:
@@ -2370,11 +2445,14 @@ def phase_edit(torch, dev, stage1):
     paced = [sess.render_dynamic(target_ms=100.0) for _ in range(4)]
     torch.cuda.synchronize()
     steps0 = trainer.global_step
+    launches = read_counts()  # the frames' eager launches; the burst's steps replay a graph
+    window = LaunchWindow()
     t = time.perf_counter()
     burst = sess.train_burst(train_ds, steps=16)
     torch.cuda.synchronize()
     burst_s = time.perf_counter() - t
-    launches = read_counts()
+    on_card = window.close()
+    launches = {k: n + on_card[k] for k, n in launches.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     # -------------------------------------------------------------- checks
     scatter.check_refused()
@@ -2746,7 +2824,7 @@ def phase_bg_linear_palette(torch, dev):
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    zero_counts()
+    window = LaunchWindow()   # the steps replay a CUDA graph; closes with the training run
     # -------------------------------------------------------------- main path
     t0 = time.perf_counter()
     cfg, trainer = main_palette.load_train_trainer(BG_LINEAR_TRAIN_ARGS, device=dev)
@@ -2760,7 +2838,7 @@ def phase_bg_linear_palette(torch, dev):
     trainer.train(train_ds, None, epochs)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = read_counts()
+    launches = window.close()
     # -------------------------------------------------------------- checks
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     losses, secs = trainer.stats["loss"], trainer.stats["epoch_seconds"]
@@ -3132,12 +3210,12 @@ def phase_real_scene(torch, dev, o_steps_per_s=None, trace_memory=False):
             memory.wrap(PaletteTrainer, "evaluate_one_epoch",
                         "test tail: evaluate_one_epoch (test split)")
             memory.wrap(PaletteTrainer, "test", "test tail: test renders")
-        zero_counts()
+        window = LaunchWindow()   # the steps replay a CUDA graph; closes with the training
         t0 = time.perf_counter()
         trainer = main_palette.main(REAL_PALETTE_ARGS, device=dev)
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
-        palette_launches = read_counts()
+        palette_launches = window.close()
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         scatter.check_refused()
         losses, secs = trainer.stats["loss"], trainer.stats["epoch_seconds"]
@@ -3405,12 +3483,12 @@ def depth_palette(torch, dev, argv, what):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     with eval_curve() as curve:
-        zero_counts()
+        window = LaunchWindow(epochs=2)   # the steps replay a CUDA graph: the first 2 epochs
         t0 = time.perf_counter()
         trainer = main_palette.main(argv, device=dev)
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
-        launches = read_counts()
+        launches = window.close()
         scatter.check_refused()
         val = trainer.evaluate_one_epoch(PaletteDataset(trainer.opt, type="val"),
                                          save_images=False)
@@ -3428,9 +3506,9 @@ def depth_palette(torch, dev, argv, what):
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"{what} palette: the loss did not fall: {losses[0]} -> "
                              f"{losses[-1]}")
-    if launches["scatter_add"] < steps or not np.isfinite(val):
+    if launches["scatter_add"] < window.steps or not window.steps or not np.isfinite(val):
         raise AssertionError(f"{what} palette: scatter_add launched {launches['scatter_add']} "
-                             f"times in {steps} steps; val {val}")
+                             f"times in the {window.steps} steps of epochs 1-2; val {val}")
     return trainer, res
 
 

@@ -43,6 +43,20 @@ stepped with a zero gradient while frozen: ``torch.optim.Adam`` counts steps per
 optax once for all, and the bias correction after the unfreeze must see the same count.
 Rebuilding the parameters (``initialize_palette``, ``load_nerf_checkpoint``) restarts
 Adam's moments and the lr schedule's count, as re-initializing the optax state does.
+
+On the card a step's device work (render, loss terms, backward with its scatter kernels,
+the zero gradient of a frozen ``basis_color``, Adam and the EMA) is captured into one CUDA
+graph and replayed (``step_graph.StepGraphs``), one graph per kind of step: the key is
+what the step's control flow reads (the ray batch's shapes, the smooth and patch-smooth
+terms, ``freeze_basis_color``, ``pred_clip``, whether ``hist_weights`` is present and
+``lambda_palette`` non-zero, whether the recorder counts, the render settings). A key's
+first step runs eagerly, its warm-up. New parameters or a new optimizer drop the graphs;
+the occupancy grid is frozen on this stage, so the bitfield a graph reads stays the
+trainer's. The draws stay eager, in their order; the lr, ``lambda_weight``,
+``lambda_palette`` and the EMA's decay are device scalars, and Adam is ``capturable``, on
+the eager steps too, so both do the same arithmetic. Steps stay eager on the CPU, on a
+rank of a ``--n_devices`` run and with ``--train_compact_frac`` (its overflow is summed
+across steps).
 """
 
 from __future__ import annotations
@@ -60,12 +74,14 @@ from ..data.rays import gen_rays_torch
 from ..models.mlp import param_leaves
 from ..models.palette import (FROZEN, PaletteSpec, get_palette_weight_with_hist, init_palette,
                               initialize_palette, palette_density)
+from ..ops.hashgrid_fast import EncodeRand
 from ..ops.occupancy import GridState
 from ..render.palette_renderer import (RegionEdit, StylizerParams, render_palette_eval,
                                        render_palette_train)
 from ..utils import profiling
 from . import checkpoint as ckpt_lib
 from .draws import Draws
+from .step_graph import DeviceScalars, StepGraphs
 from .trainer import Trainer, eval_gt, gt_to_color_space
 
 
@@ -119,6 +135,8 @@ class PaletteTrainer(Trainer):
         # leaves that this stage never moves (see the module docstring)
         self._fixed = FROZEN + ("encoder", "sigma_net") + (
             () if spec.pred_clip else ("encoder_clip",))
+        self._graphs = StepGraphs()
+        self._scalars = None  # DeviceScalars on the card
 
         super().__init__(
             name, opt, spec, params=params, workspace=workspace, metrics=metrics,
@@ -138,6 +156,47 @@ class PaletteTrainer(Trainer):
     def _trainable(self, params):
         return param_leaves(params, skip=self._fixed)
 
+    def _optimizer(self, leaves) -> torch.optim.Optimizer:
+        """Adam as the stage-1 trainer's; on the card ``capturable``, its lr a device
+        scalar, and its state made here with the step counts in f64 (``capturable`` Adam
+        computes ``1 - beta2**t`` in the counts' dtype: in f32 it is 1e-6 off at t = 1, and
+        every update with it). New parameters or a new optimizer drop the captured steps."""
+        self._graphs.clear()
+        if self.device.type != "cuda":
+            return super()._optimizer(leaves)
+        if self._scalars is None:
+            self._scalars = DeviceScalars(self.device, ("lr", "lambda_weight", "lambda_palette",
+                                                        "ema_decay", "ema_rest"))
+        adam = torch.optim.Adam(leaves, lr=self._scalars["lr"], betas=(0.9, 0.99), eps=1e-15,
+                                capturable=True)
+        for p in leaves:
+            adam.state[p] = {"step": torch.zeros((), dtype=torch.float64, device=p.device),
+                             "exp_avg": torch.zeros_like(p), "exp_avg_sq": torch.zeros_like(p)}
+        return adam
+
+    def _set_lr(self, lr: float) -> None:
+        if self._scalars is None:
+            return super()._set_lr(lr)
+        self._scalars.set(lr=lr)
+
+    def _step_optimizer(self) -> None:
+        if self._scalars is None or self.ema_decay is None:
+            return super()._step_optimizer()
+        self.optimizer.step()
+        with torch.no_grad():
+            ema, cur = self._trainable(self.ema_params), self._trainable(self.params)
+            torch._foreach_mul_(ema, self._scalars["ema_decay"])
+            torch._foreach_add_(ema, torch._foreach_mul(cur, self._scalars["ema_rest"]))
+
+    def _weight(self, name: str):
+        """Loss weight ``name`` as the step reads it: its device scalar on the card."""
+        return getattr(self, name) if self._scalars is None else self._scalars[name]
+
+    def _captures(self) -> bool:
+        """Whether steps are captured (see the module docstring)."""
+        return (self.device.type == "cuda" and self.dp is None
+                and self.train_settings.compact_frac <= 0)
+
     def set_edit(self, edit: Optional[RegionEdit] = None,
                  stylizer: Optional[StylizerParams] = None,
                  offsets_weight: float = 1.0, view_dep_weight: float = 1.0):
@@ -156,7 +215,7 @@ class PaletteTrainer(Trainer):
     def train_step(self, rays_o, rays_d, images, gt_feat=None, bg=None, noise=None,
                    jit_u=None, enc_u=None, enc_lvls=None, inds=None, width=None,
                    draws: Optional[Draws] = None):
-        """One optimizer step on a ray batch; returns (loss, per_ray), detached.
+        """One optimizer step on a ray batch; returns (loss, per_ray), detached (copies).
 
         ``bg`` [N, 3] (background for RGBA gt), ``noise`` [N] (march jitter), ``jit_u``
         [N*S, 3] (smooth-loss jitter) and, under ``-O2``, the encode draws ``enc_u`` /
@@ -166,8 +225,13 @@ class PaletteTrainer(Trainer):
         ``inds`` [N] and image ``width`` with the patch-smooth term. On a rank of a
         ``--n_devices`` run, as ``Trainer.train_step``: the rays, images, ``gt_feat`` and
         ``inds`` are the rank's shard, the draws the whole batch's.
+
+        A captured step (module docstring) replays its graph: ``train.forward`` then
+        covers the draws and the copies into the graph's inputs, ``train.backward`` the
+        graph's launch (its capture, the first time) and ``train.optim`` the copies of its
+        outputs.
         """
-        opt, spec, dev = self.opt, self.palette_spec, self.device
+        opt, spec = self.opt, self.palette_spec
         draws = draws or self.draws
         shard = self._step_shard(rays_o.shape[0])
         n = rays_o.shape[0] if shard is None else shard.n
@@ -177,52 +241,101 @@ class PaletteTrainer(Trainer):
             patch = smooth and opt.random_size > 0 and opt.lambda_patchsmooth > 0
             if patch and (inds is None or width is None):
                 raise ValueError("the patch-smooth term needs the batch's pixel indices and width")
-            images = gt_to_color_space(opt, images)
             if images.shape[-1] == 4 and spec.bg_radius <= 0:
                 if bg is None:
                     bg = draws.background(n)
                 bg = self._take(bg, shard)
-                gt = images[..., :3] * images[..., 3:] + bg * (1.0 - images[..., 3:])
             else:
-                bg = torch.ones((3,), dtype=torch.float32, device=dev)
-                gt = images[..., :3]
+                bg = None
             if noise is None:
                 noise = draws.jitter(n)
             noise = self._take(noise, shard)
             if smooth and jit_u is None:
                 jit_u = draws.smooth_jitter(n * self.train_settings.num_samples)
-            jit_u = self._take(jit_u, shard)
-            rand = self._encode_rand(n, enc_u, enc_lvls, shard, draws)
+            rand = self._encode_rand(n, enc_u, enc_lvls, shard, draws) or EncodeRand()
+            batch = {"rays_o": rays_o, "rays_d": rays_d, "images": images, "bg": bg,
+                     "noise": noise, "jit_u": self._take(jit_u, shard) if smooth else None,
+                     "gt_feat": gt_feat if spec.pred_clip else None,
+                     "inds": inds if patch else None, "enc_u": rand.u, "enc_lvls": rand.lvls}
+            if self._scalars is not None:
+                self._scalars.set(lambda_weight=self.lambda_weight,
+                                  lambda_palette=self.lambda_palette,
+                                  ema_decay=self.ema_decay or 0.0,
+                                  ema_rest=1.0 - (self.ema_decay or 0.0))
+            graph = None
+            if self._captures():
+                key = (tuple((k, None if v is None else (tuple(v.shape), v.dtype))
+                             for k, v in batch.items()),
+                       smooth, patch, width if patch else None, self.freeze_basis_color,
+                       spec.pred_clip, "hist_weights" in self.params, bool(self.lambda_palette),
+                       profiling.counting(), self.ema_decay is None, self.train_settings)
+                graph = self._graphs.get(
+                    key, lambda b: self._captured_step(b, smooth, patch, width))
+            if graph is None:
+                loss, per_ray, param_loss = self._step_terms(batch, smooth, patch, width)
+            else:
+                self._set_lr(self._scheduled_lr())
+                graph.load(batch)
+        if graph is None:
+            profiling.count("train.graph.replays", 0)
+            loss = self._update(loss, zero_grad_for=(self.params["basis_color"],),
+                                param_loss=param_loss)
+            return loss, per_ray.detach()
+        with profiling.span("train.backward"):
+            graph.launch()
+        with profiling.span("train.optim"):
+            self.opt_step += 1
+            loss, per_ray = graph.results()
+        return loss, per_ray
 
-            p = self.params
-            out = render_palette_train(p, spec, self.grid_state.bitfield, rays_o, rays_d,
-                                       self.train_settings, bg_color=bg,
-                                       freeze_basis_color=self.freeze_basis_color,
-                                       require_smooth_loss=smooth, noise=noise, jit_u=jit_u,
-                                       rand=rand)
-            self._add_overflow(out)
-            per_ray = ((out["image"] - gt) ** 2).mean(-1)
-            loss = per_ray.mean()
-            loss = loss + ((out["direct_rgb"] - gt) ** 2).mean()
-            if spec.pred_clip:
-                loss = loss + ((out["clip_feat"] - gt_feat) ** 2).mean()
-            loss = loss + opt.lambda_sparsity * out["omega_sparsity"].mean()
-            loss = loss + opt.lambda_offsets * out["offsets_norm"].mean()
-            loss = loss + opt.lambda_view_dep * out["view_dep_norm"].mean()
-            if smooth and opt.lambda_smooth > 0:
-                loss = loss + opt.lambda_smooth * out["smooth_norm"].mean()
-            if patch:
-                loss = loss + opt.lambda_patchsmooth * patch_smooth_term(out, inds, width,
-                                                                         opt.sigma_color)
-            if "hist_weights" in p:
-                gt_w = get_palette_weight_with_hist(gt, p["hist_weights"]).detach()
-                loss = loss + self.lambda_weight * ((gt_w - out["basis_acc"]) ** 2).mean()
-            param_loss = None  # the term of the parameters alone: once per step, not per rank
-            if self.lambda_palette:
-                param_loss = self.lambda_palette * (
-                    (p["basis_color"] - p["basis_color_origin"]) ** 2).sum(-1).mean()
+    def _step_terms(self, b: dict, smooth: bool, patch: bool, width) -> tuple:
+        """The render and loss terms of a step on its inputs ``b`` (``train_step``'s
+        batch): (the batch's terms, per_ray, the parameters' term or None)."""
+        opt, spec, p = self.opt, self.palette_spec, self.params
+        images = gt_to_color_space(opt, b["images"])
+        bg = b["bg"]
+        if bg is not None:
+            gt = images[..., :3] * images[..., 3:] + bg * (1.0 - images[..., 3:])
+        else:
+            bg = torch.ones((3,), dtype=torch.float32, device=self.device)
+            gt = images[..., :3]
+        rand = None
+        if b["enc_u"] is not None or b["enc_lvls"] is not None:
+            rand = EncodeRand(u=b["enc_u"], lvls=b["enc_lvls"])
+        out = render_palette_train(p, spec, self.grid_state.bitfield, b["rays_o"], b["rays_d"],
+                                   self.train_settings, bg_color=bg,
+                                   freeze_basis_color=self.freeze_basis_color,
+                                   require_smooth_loss=smooth, noise=b["noise"],
+                                   jit_u=b["jit_u"], rand=rand)
+        self._add_overflow(out)
+        per_ray = ((out["image"] - gt) ** 2).mean(-1)
+        loss = per_ray.mean()
+        loss = loss + ((out["direct_rgb"] - gt) ** 2).mean()
+        if spec.pred_clip:
+            loss = loss + ((out["clip_feat"] - b["gt_feat"]) ** 2).mean()
+        loss = loss + opt.lambda_sparsity * out["omega_sparsity"].mean()
+        loss = loss + opt.lambda_offsets * out["offsets_norm"].mean()
+        loss = loss + opt.lambda_view_dep * out["view_dep_norm"].mean()
+        if smooth and opt.lambda_smooth > 0:
+            loss = loss + opt.lambda_smooth * out["smooth_norm"].mean()
+        if patch:
+            loss = loss + opt.lambda_patchsmooth * patch_smooth_term(out, b["inds"], width,
+                                                                     opt.sigma_color)
+        if "hist_weights" in p:
+            gt_w = get_palette_weight_with_hist(gt, p["hist_weights"]).detach()
+            loss = loss + self._weight("lambda_weight") * ((gt_w - out["basis_acc"]) ** 2).mean()
+        param_loss = None  # the term of the parameters alone: once per step, not per rank
+        if self.lambda_palette:
+            param_loss = self._weight("lambda_palette") * (
+                (p["basis_color"] - p["basis_color_origin"]) ** 2).sum(-1).mean()
+        return loss, per_ray, param_loss
 
-        loss = self._update(loss, zero_grad_for=(p["basis_color"],), param_loss=param_loss)
+    def _captured_step(self, b: dict, smooth: bool, patch: bool, width) -> tuple:
+        """What a step's graph holds: loss terms, backward, Adam and EMA; returns (loss,
+        per_ray), the graph's outputs."""
+        loss, per_ray, param_loss = self._step_terms(b, smooth, patch, width)
+        loss = self._backward(loss, (self.params["basis_color"],), param_loss)
+        self._step_optimizer()
         return loss, per_ray.detach()
 
     def _batch_step(self, data: dict, **given):

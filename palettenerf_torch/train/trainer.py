@@ -240,10 +240,12 @@ class Trainer:
             p.requires_grad_(True)
         self.ema_params = _copy_params(self.params if ema_params is None else ema_params,
                                        self.device)
-        self.optimizer = torch.optim.Adam(self._trainable(self.params), lr=self.opt.lr,
-                                          betas=(0.9, 0.99), eps=1e-15)
+        self.optimizer = self._optimizer(self._trainable(self.params))
         self.opt_step = 0  # optimizer updates made (the lr schedule's count)
         self._fine_bitfield = None  # the weights changed: rebake on the next eval
+
+    def _optimizer(self, leaves) -> torch.optim.Optimizer:
+        return torch.optim.Adam(leaves, lr=self.opt.lr, betas=(0.9, 0.99), eps=1e-15)
 
     def _march_groups(self) -> int:
         """Group slots of the hierarchical march: ``--march_groups``, where -1 (the
@@ -370,15 +372,25 @@ class Trainer:
     def _update(self, loss: torch.Tensor, zero_grad_for=(),
                 param_loss: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Backward, one Adam step at the schedule's lr, EMA; returns the step's loss,
-        ``loss + param_loss``, detached. ``loss`` holds the terms of the batch (means over
-        its rays), ``param_loss`` (optional) those that read only parameters. A tensor of
-        ``zero_grad_for`` that got no gradient is stepped with a zero one, so that its
-        Adam step count runs on as optax's single count does.
+        ``loss + param_loss``, detached (``_backward`` says what the arguments are)."""
+        total = self._backward(loss, zero_grad_for, param_loss)
+        with profiling.span("train.optim"):
+            self._set_lr(self._scheduled_lr())
+            self._step_optimizer()
+            self.opt_step += 1
+        return total
+
+    def _backward(self, loss: torch.Tensor, zero_grad_for=(),
+                  param_loss: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The gradients of a step; returns its loss, ``loss + param_loss``, detached.
+        ``loss`` holds the terms of the batch (means over its rays), ``param_loss``
+        (optional) those that read only parameters. A tensor of ``zero_grad_for`` that got
+        no gradient is given a zero one, so that its Adam step count runs on as optax's
+        single count does.
 
         On a rank, ``loss`` is the rank's shard's: it is scaled by 1/n_devices and
         ``param_loss`` counted on rank 0 alone, so the gradients summed over the ranks
         are the whole batch's; the returned loss is summed with them."""
-        opt = self.opt
         self.optimizer.zero_grad(set_to_none=True)
         if self.dp is None:
             total = loss if param_loss is None else loss + param_loss
@@ -394,18 +406,24 @@ class Trainer:
             total = self.dp.reduce_grads(self._trainable(self.params), loss.detach()[None])[0]
             if param_loss is not None:
                 total = total + param_loss.detach()
-        with profiling.span("train.optim"):
-            lr = opt.lr * 0.1 ** min(self.opt_step / opt.iters, 1.0)
-            for group in self.optimizer.param_groups:
-                group["lr"] = lr
-            self.optimizer.step()
-            self.opt_step += 1
-            if self.ema_decay is not None:
-                with torch.no_grad():
-                    ema, cur = self._trainable(self.ema_params), self._trainable(self.params)
-                    torch._foreach_mul_(ema, self.ema_decay)
-                    torch._foreach_add_(ema, cur, alpha=1.0 - self.ema_decay)
         return total.detach()
+
+    def _scheduled_lr(self) -> float:
+        """The lr of the next update: ``lr * 0.1**min(k / iters, 1)`` at update k."""
+        return self.opt.lr * 0.1 ** min(self.opt_step / self.opt.iters, 1.0)
+
+    def _set_lr(self, lr: float) -> None:
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+
+    def _step_optimizer(self) -> None:
+        """Adam's step on the gradients, then the EMA of the parameters."""
+        self.optimizer.step()
+        if self.ema_decay is not None:
+            with torch.no_grad():
+                ema, cur = self._trainable(self.ema_params), self._trainable(self.params)
+                torch._foreach_mul_(ema, self.ema_decay)
+                torch._foreach_add_(ema, cur, alpha=1.0 - self.ema_decay)
 
     _field_density = staticmethod(nerf_density)
 
@@ -689,6 +707,21 @@ class Trainer:
         dt = time.time() - t0
         self.log(f"[test] {n} frames, total {dt:.2f}s, avg {dt / max(n, 1):.3f}s/frame")
 
+    def _load_optimizer(self, state: dict) -> None:
+        """Adam's saved moments and step counts into this trainer's optimizer, which keeps
+        its own lr and ``capturable`` (a checkpoint written on the card may be read on the
+        CPU and the other way round); the step counts go where, and in the dtype, that
+        setting keeps them (``capturable``: beside the parameter, in f64)."""
+        own = [{k: g[k] for k in ("lr", "capturable")} for g in self.optimizer.param_groups]
+        self.optimizer.load_state_dict(state)
+        for group, kept in zip(self.optimizer.param_groups, own):
+            group.update(kept)
+            for p in group["params"]:
+                st = self.optimizer.state.get(p, {})
+                if "step" in st:
+                    st["step"] = (st["step"].to(p.device, torch.float64) if kept["capturable"]
+                                  else st["step"].to("cpu", torch.float32))
+
     # ------------------------------------------------------------------ GUI hooks
 
     def train_gui(self, train_ds, step: int = 16) -> dict:
@@ -840,7 +873,7 @@ class Trainer:
             self.grid_state = GridState(**{k: v.to(self.device)
                                            for k, v in data["grid_state"].items()})
         if "optimizer" in data:
-            self.optimizer.load_state_dict(data["optimizer"])
+            self._load_optimizer(data["optimizer"])
             self.opt_step = data.get("opt_step", self.global_step)
         if "generator" in data:
             self.generator.set_state(data["generator"])

@@ -21,6 +21,13 @@ the device's operations) and records its name, its start and end on ``time.time_
 frame's index). A device counter adds a tensor's sum into a device accumulator (two aten calls, a
 reduction and an add; four device operations on a card, the bool tensor's cast and the
 reduction's memset included), read by ``flush()`` at a host read the caller already makes.
+
+Inside ``capture()`` (a CUDA graph's capture, which records device work without running
+it) spans record nothing, and what the block counts goes into a ``Captured``: its
+``replayed()`` counts it again at each replay of the graph, the device counters from the
+tensors the graph writes. The kernel wrappers' ``launches`` count the host's calls of a
+kernel's launch, so a kernel in a CUDA graph once, at its capture: ``kernel_launches``
+counts the kernels that ran on the device, from a profiler window's kernel events.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ import contextlib
 import json
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -100,6 +107,7 @@ class Recorder:
 
     def __init__(self):
         self.forced = False
+        self.capture: Optional["Captured"] = None  # the capture under way, if any
         self.reset()
 
     def reset(self) -> None:
@@ -176,15 +184,39 @@ class _Span:
         return False
 
 
+class Captured:
+    """What a block captured into a CUDA graph counted (``capture``): the recorder's host
+    counts and its device counters, whose sums are tensors that each replay of the graph
+    writes anew."""
+
+    def __init__(self):
+        self.counts: Dict[str, int] = {}
+        self.device: Dict[str, torch.Tensor] = {}
+
+    def replayed(self) -> None:
+        """Count one replay of the graph (call it after the replay's launch)."""
+        for name, n in self.counts.items():
+            count(name, n)
+        if self.device and counting():
+            for name, t in self.device.items():
+                RECORDER.pending[name] = RECORDER.pending.get(name, 0) + t
+
+
 RECORDER = Recorder()
 _OFF = contextlib.nullcontext()
+
+
+def counting() -> bool:
+    """Whether the recorder is on (a graph captured while it is on writes the device
+    counters, one captured while it is off does not)."""
+    return RECORDER.forced or _profiling()
 
 
 def span(name: str, unit=None):
     """A context that records the block as span ``name`` while the recorder is on, else
     the shared no-op context. ``unit`` (the global step, the frame's index) defaults to the
     parent span's, and for a span without a parent to its occurrence count."""
-    if not (RECORDER.forced or _profiling()):
+    if not (RECORDER.forced or _profiling()) or RECORDER.capture is not None:
         return _OFF
     return _Span(RECORDER, name, unit)
 
@@ -192,14 +224,29 @@ def span(name: str, unit=None):
 def count(name: str, n: int) -> None:
     """Add ``n`` (a host integer) to counter ``name`` while the recorder is on."""
     if RECORDER.forced or _profiling():
-        RECORDER.counters[name] = RECORDER.counters.get(name, 0) + int(n)
+        into = RECORDER.counters if RECORDER.capture is None else RECORDER.capture.counts
+        into[name] = into.get(name, 0) + int(n)
 
 
 def count_device(name: str, x: torch.Tensor) -> None:
     """Add ``x``'s sum to device counter ``name`` while the recorder is on: one reduction
     and one add on ``x``'s device, no host read (``flush`` reads it)."""
     if RECORDER.forced or _profiling():
-        RECORDER.pending[name] = RECORDER.pending.get(name, 0) + x.sum()
+        into = RECORDER.pending if RECORDER.capture is None else RECORDER.capture.device
+        into[name] = into.get(name, 0) + x.sum()
+
+
+@contextlib.contextmanager
+def capture():
+    """Count the block as a CUDA graph's capture: yields the ``Captured`` that holds its
+    counts, for each replay to count again."""
+    if RECORDER.capture is not None:
+        raise RuntimeError("a capture is already under way")
+    RECORDER.capture = Captured()
+    try:
+        yield RECORDER.capture
+    finally:
+        RECORDER.capture = None
 
 
 def flush() -> None:
@@ -244,3 +291,27 @@ def trace(log_dir: str = "results/profile_trace"):
     prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{n}.json"))
     with open(os.path.join(log_dir, f"spans_{os.getpid()}_{n}.json"), "w") as f:
         json.dump(dict(snapshot(), span_records=RECORDER.records), f)
+
+
+@contextlib.contextmanager
+def kernel_launches(names: Sequence[str]):
+    """Count the kernels that run on the card in the block, from the kernel events of a
+    ``torch.profiler`` window (CUDA activity alone; on a machine without a card the window
+    records host activity and counts nothing): yields a dict that holds, once the block has
+    ended, the number of kernels whose name holds each of ``names``. A kernel replayed in a
+    CUDA graph counts at each replay. The recorder is on inside, as under any profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    card = torch.cuda.is_available()
+    counts = dict.fromkeys(names, 0)
+    with profile(activities=[ProfilerActivity.CUDA if card else ProfilerActivity.CPU]) as prof:
+        yield counts
+        if card:
+            torch.cuda.synchronize()
+    # the raw kineto events: the profiler's event tree over a long window takes minutes
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            name = e.name()
+            for n in names:
+                if n in name:
+                    counts[n] += 1

@@ -515,20 +515,24 @@ def test_palette_train_step_launches_one_scatter_without_smooth_loss(cuda_device
 
 
 def test_palette_train_step_makes_no_host_sync(cuda_device, tmp_path):
-    """After a first step (kernel build, allocator, cached constants) a palette train step
-    with every draw made on the device reads nothing back: PyTorch's sync debug mode
-    turns any synchronising call into an error. The epoch's loss read is outside."""
+    """After a first step (kernel build, allocator, cached constants) and the capture of
+    the step's graph, a palette train step with every draw made on the device reads nothing
+    back, replayed or (the first step of another kind of step) eager: PyTorch's sync debug
+    mode turns any synchronising call into an error. The epoch's loss read is outside."""
     cfg, spec, params, batch = _palette_setup()
     tr = _palette_trainer(cfg, spec, params, cuda_device, tmp_path)
     o, d, img = (t.to(cuda_device) for t in batch[:3])
-    tr.train_step(o, d, img)
+    for _ in range(2):  # the eager warm-up, then the capture
+        tr.train_step(o, d, img)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        loss, _ = tr.train_step(o, d, img)
+        replayed, _ = tr.train_step(o, d, img)
+        tr.require_smooth_loss = False
+        eager, _ = tr.train_step(o, d, img)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert bool(torch.isfinite(loss))
+    assert bool(torch.isfinite(replayed)) and bool(torch.isfinite(eager))
     scatter.check_refused()
 
 

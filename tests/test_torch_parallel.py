@@ -186,6 +186,21 @@ def test_two_rank_palette_step_matches_one(runs):
             assert int((diff > 1e-4).sum()) <= allowed, (k, float(diff.max()))
 
 
+def test_two_rank_palette_steps_stay_eager_and_count(runs):
+    """A rank's palette steps run eagerly (on the card too: a rank's step is never
+    captured) and count as the single process's: no replay, each rank its share of the
+    rays, the ranks' march samples summing to the single process's."""
+    one, (r0, r1) = runs["palette"]
+    n = PALETTE_KW["num_rays"]
+    assert one["counters"]["train.ray_count"] == 2 * n
+    for r in (one, r0, r1):
+        assert r["counters"]["train.graph.replays"] == 0
+        assert "train.graph.captures" not in r["counters"]
+    assert r0["counters"]["train.ray_count"] == r1["counters"]["train.ray_count"] == n
+    assert (r0["counters"]["train.valid_samples"] + r1["counters"]["train.valid_samples"]
+            == one["counters"]["train.valid_samples"] > 0)
+
+
 def test_main_nerf_trains_on_two_ranks(scene, tmp_path, monkeypatch):
     """``main_nerf --n_devices 2`` spawns its ranks, trains, evaluates, tests and meshes;
     rank 0 alone writes the workspace (one log, one set of checkpoints and images)."""

@@ -71,7 +71,8 @@ class FakeViews:
 
 
 def _trainer(kind: str, tmp_path):
-    opt = Config(**CFG)
+    """``kind``: "ngp", "palette", or "palette-compact" (``--train_compact_frac 0.5``)."""
+    opt = Config(**CFG, train_compact_frac=0.5 if kind == "palette-compact" else 0.0)
     if kind == "ngp":
         spec = NeRFSpec.build(bound=1.0, log2_hashmap_size=12, grid_levels=4)
         tr = Trainer("ngp", opt, spec, workspace=str(tmp_path), use_checkpoint="scratch",
@@ -187,7 +188,7 @@ def test_trace_writes_the_spans_beside_the_chrome_trace(tmp_path):
 
 # ------------------------------------------------------------------ the program's spans
 
-@pytest.mark.parametrize("kind", ["ngp", "palette"])
+@pytest.mark.parametrize("kind", ["ngp", "palette", "palette-compact"])
 def test_epoch_span_tree_and_valid_samples(kind, tmp_path, monkeypatch):
     tr = _trainer(kind, tmp_path)
     views = FakeViews()
@@ -216,6 +217,9 @@ def test_epoch_span_tree_and_valid_samples(kind, tmp_path, monkeypatch):
     assert s["counters"]["train.ray_count"] == steps * CFG["num_rays"]
     assert len(sums) == steps and sum(sums) > 0
     assert s["counters"]["train.valid_samples"] == sum(sums)
+    # the CPU's palette steps run eagerly, and count that they replayed nothing
+    assert s["counters"].get("train.graph.replays") == (None if kind == "ngp" else 0)
+    assert "train.graph.captures" not in s["counters"]
 
 
 def test_exact_frame_counts_its_rounds(tmp_path):
@@ -367,7 +371,8 @@ def test_idle_gap_is_labelled_with_the_program_span(tmp_path):
 NEW = {"ngp-train": ("refresh_ms_per_step", "forward_host_ms_per_step",
                      "backward_host_ms_per_step", "valid_samples_per_ray"),
        "palette-train": ("forward_host_ms_per_step.palette",
-                         "backward_host_ms_per_step.palette", "valid_samples_per_ray.palette"),
+                         "backward_host_ms_per_step.palette", "valid_samples_per_ray.palette",
+                         "graph_replay_share.palette"),
        "ngp-exact-eval": ("collate_ms_per_frame.exact", "late_round_samples.exact"),
        "palette-sweep-edit": ("plan_ms_per_frame.sweep", "composite_host_ms_per_frame.sweep",
                               "warp_host_ms_per_frame.sweep", "blocks_run_per_frame.sweep")}
@@ -398,3 +403,20 @@ def test_metric_readers(cell, scene):
     for name, read in readers.items():
         assert read(harness.Reading(cell=c, window=window, spans={}, trace=None)) is None
         assert read(harness.Reading(cell=c, window=window, spans={}, trace=object())) is None
+
+
+def test_graph_replay_share_reads_the_replay_counter():
+    """``graph_replay_share.palette``: replayed steps per step of the window in %, from the
+    recorder's counter; nothing without a trace or from a program that counts no replays."""
+    cell = harness.load_cell(support.ROOT, "palette-train")
+    read = harness.load_module("metrics", "graph_replay_share.palette").read
+    window = harness.Window(units=200, calls=2, seconds=1.0)
+    traced = harness.Reading(cell=cell, window=window, spans={}, trace=object())
+    profiling.enable()
+    profiling.count("train.graph.replays", 199)
+    profiling.count("train.ray_count", 200 * 64)
+    assert read(traced) == pytest.approx(99.5)
+    assert read(harness.Reading(cell=cell, window=window, spans={}, trace=None)) is None
+    profiling.reset()
+    profiling.count("train.ray_count", 200 * 64)
+    assert read(traced) is None

@@ -28,6 +28,7 @@ from palettenerf_torch.ops.occupancy import packbits
 from palettenerf_torch.render.nerf_renderer import RenderSettings, render_nerf_train
 from palettenerf_torch.train.palette_trainer import PaletteTrainer
 from palettenerf_torch.train.trainer import Trainer
+from palettenerf_torch.utils import profiling
 
 CPU_THREADS = 1  # as tests/torch_support.py: one intra-op thread (ROADMAP C8)
 
@@ -155,11 +156,18 @@ def palette_step(scene: str, ws: str, out_dir: str, cfg_kw: dict) -> None:
     tr.freeze_basis_color, tr.require_smooth_loss = False, True
     tr.lambda_weight, tr.lambda_palette = 0.05, 1e-3
     ds = PaletteDataset(cfg, type="train")
-    losses = [float(tr._batch_step(ds.collate(i))[0]) for i in range(2)]
+    profiling.enable()   # the steps' counters (no device work of their own on the CPU)
+    try:
+        losses = [float(tr._batch_step(ds.collate(i))[0]) for i in range(2)]
+        counters = profiling.snapshot()["counters"]
+    finally:
+        profiling.enable(False)
+        profiling.reset()
     _save(out_dir, {"loss": losses,
                     "params": {k: [t.detach().clone() for t in param_leaves({k: v})]
                                for k, v in tr.params.items()},
-                    "digest": digest(param_leaves(tr.params) + param_leaves(tr.ema_params))})
+                    "digest": digest(param_leaves(tr.params) + param_leaves(tr.ema_params)),
+                    "counters": counters})
 
 
 def run_all(runs) -> None:
